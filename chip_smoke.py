@@ -1,0 +1,519 @@
+"""Drive the PyTorch/CUDA port on one GPU and check every kernel on the card.
+
+Run from the repository root: ``python3 chip_smoke.py``.  Needs one CUDA
+card (it exits non-zero without one), ``nvcc`` and nothing else.
+
+Phases, one line each:
+  1. device   — the card's name, and nvidia-smi's name and power limit;
+  2. build    — nvcc builds of the four kernels in csrc/ (in parallel);
+  3. parity   — each kernel against its plain PyTorch version on the same
+                card tensors at the main path's shapes (and against Python
+                ints on a sample), with its device time per call (CUDA
+                events around calls queued back to back), the plain
+                version's time and the bound;
+  4. golden   — the TinyCircuit proof on the card: 802 bytes, fixed sha256;
+  5. withdraw — the withdraw circuit at HEIGHT=48, NOTES=3, TABLE=1024
+                (n = 2^18): SRS setup, compile, cold and warm prove, verify,
+                a tampered public input that must raise, and the launch
+                count of every kernel over this main path;
+then one JSON line of kernel records, nvidia-smi's line, and the result line.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks used for the bounds: HBM 3.35 TB/s (NVIDIA data sheet) and
+# 32-bit integer multiplies at 132 SMs x 64 lanes x 1.98 GHz = 16.7 T/s
+# (the INT32 lanes are half the FP32 lanes behind the 67 TFLOP/s float32 peak).
+HBM_BYTES_PER_S = 3.35e12
+INT32_MUL_PER_S = 132 * 64 * 1.98e9
+ELEM_BYTES = 64  # one field element: 16 limbs of int32
+# One 256-bit modular product with 32-bit multipliers: 8x8 word products
+# plus 8x8 + 8 for the reduction, each a mul.lo and a mul.hi.  The bounds
+# count the modular products that the function needs, not the ones a kernel
+# spends on its own bookkeeping (Montgomery conversions).
+MODMUL_OPS = 2 * (2 * 8 * 8 + 8)
+
+GOLDEN_SHA256 = "504e1dbfaa28af3d1e9da112bbb4329374e06669416c39ec1fc8015df71d3cba"
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def say(phase: str, **fields) -> None:
+    parts = [f"{k}={v}" for k, v in fields.items()]
+    print(f"[{phase}] " + " ".join(parts), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _cycles_per_ms() -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 24
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls queued back to
+    back between one pair of CUDA events, over ``reps``.  A spin kernel
+    holds the stream while the host queues the calls, for twice as long as
+    the host took to issue them unhindered, so the wrappers' host work
+    (argument checks, allocation, the ctypes call) does not land between
+    the kernels."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * host_ms + 1) * _cycles_per_ms()))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, int_ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = int_ops / INT32_MUL_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def random_limbs(spec, n: int, rng: np.random.Generator) -> np.ndarray:
+    """n canonical elements as (n, L) limbs: top limb below p's top limb."""
+    L = spec.n_limbs
+    arr = rng.integers(0, 1 << 16, size=(n, L), dtype=np.int64)
+    arr[:, L - 1] = rng.integers(0, int(spec.modulus_limbs[L - 1]), size=n)
+    return arr.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernel parity
+# ---------------------------------------------------------------------------
+
+
+def adversarial_pairs(p: int, rng: random.Random):
+    pairs = []
+    for tgt in [0, 1, 2, 3, p - 1, p - 2, p - 3]:
+        for _ in range(32):
+            a = rng.randrange(1, p)
+            pairs.append((a, tgt * pow(a, -1, p) % p))
+    fixtures = [0, 1, 2, p - 1, p - 2, (p - 1) // 2, (p + 1) // 2]
+    fixtures += [((1 << k) - 1) % p for k in range(16, 16 * 16 + 1, 16)]
+    fixtures += [(1 << k) % p for k in range(15, 16 * 16, 16)]
+    pairs += [(x, y) for x in fixtures for y in fixtures]
+    return pairs
+
+
+def parity_fp_binop(records, dev):
+    from zkt_plonk_tpu_torch.fields import BN254_FQ, BN254_FR, make_spec
+    from zkt_plonk_tpu_torch.fields import cuda as fc
+    from zkt_plonk_tpu_torch.fields.limbs import array_to_ints, ints_to_array
+
+    n = 1 << 20
+    worst = 0
+    times = {}
+    for params in (BN254_FR, BN254_FQ):
+        spec = make_spec(params)
+        p = spec.modulus
+        gen = np.random.default_rng(11)
+        A = random_limbs(spec, n, gen)
+        B = random_limbs(spec, n, gen)
+        pairs = adversarial_pairs(p, random.Random(99))
+        A[: len(pairs)] = ints_to_array([a for a, _ in pairs], 16)
+        B[: len(pairs)] = ints_to_array([b for _, b in pairs], 16)
+        a = torch.from_numpy(A).to(dev)
+        b = torch.from_numpy(B).to(dev)
+        sample = list(range(len(pairs))) + [int(i) for i in gen.integers(0, n, 300)]
+        a_int = array_to_ints(A[sample])
+        b_int = array_to_ints(B[sample])
+        for op, ref in (
+            ("mul", lambda x, y: x * y % p),
+            ("add", lambda x, y: (x + y) % p),
+            ("sub", lambda x, y: (x - y) % p),
+        ):
+            got = fc.binop(spec, op, a, b)
+            plain = fc.binop_plain(spec, op, a, b)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, plain)
+            worst = max(worst, err)
+            want = [ref(x, y) for x, y in zip(a_int, b_int)]
+            if err != 0 or array_to_ints(got[sample].cpu().numpy()) != want:
+                raise AssertionError(f"fp_binop {op} on {params.name} disagrees (max_abs_err {err})")
+            if params is BN254_FR:
+                times[op] = (
+                    time_cuda(lambda: fc.binop(spec, op, a, b)),
+                    time_cuda(lambda: fc.binop_plain(spec, op, a, b), reps=3, warmup=1),
+                )
+        del a, b
+    for op in ("mul", "add", "sub"):
+        ops = n * MODMUL_OPS if op == "mul" else 0
+        b_ms, b_by = bound_ms(3 * ELEM_BYTES * n, ops)
+        say("parity", kernel=f"fp_binop.{op}", shape=f"2^20xFr", ms=times[op][0],
+            plain_ms=times[op][1], bound_ms=b_ms, bound_by=b_by, max_abs_err=worst)
+    k_ms, p_ms = times["mul"]
+    b_ms, b_by = bound_ms(3 * ELEM_BYTES * n, n * MODMUL_OPS)
+    records["fp_binop"] = dict(
+        name="fp_binop", route="cuda", source="zkt_plonk_tpu_torch/csrc/fp_binop.cu",
+        replaces="zkt_plonk_tpu/fields/pallas.py:310", max_abs_err=worst, ms=k_ms,
+        plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+
+def parity_fp_pow_chain(records, dev):
+    from zkt_plonk_tpu_torch.fields import BN254_FR, make_spec
+    from zkt_plonk_tpu_torch.fields import cuda as fc
+    from zkt_plonk_tpu_torch.fields.limbs import array_to_ints
+
+    spec = make_spec(BN254_FR)
+    p = spec.modulus
+    n = 1 << 12
+    A = random_limbs(spec, n, np.random.default_rng(5))
+    A[:7] = 0
+    A[7, :] = 0
+    A[7, 0] = 1
+    a = torch.from_numpy(A).to(dev)
+    e = p - 2
+    got = fc.pow_chain(spec, a, e)
+    plain = fc.pow_chain_plain(spec, a, e)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, plain)
+    sample = list(range(300))
+    want = [pow(x, e, p) for x in array_to_ints(A[sample])]
+    if err != 0 or array_to_ints(got[sample].cpu().numpy()) != want:
+        raise AssertionError(f"fp_pow_chain disagrees (max_abs_err {err})")
+    k_ms = time_cuda(lambda: fc.pow_chain(spec, a, e))
+    p_ms = time_cuda(lambda: fc.pow_chain_plain(spec, a, e), reps=1, warmup=0)
+    chain = e.bit_length() - 1 + bin(e).count("1") - 1  # squarings + multiplies
+    b_ms, b_by = bound_ms(2 * ELEM_BYTES * n, n * chain * MODMUL_OPS)
+    say("parity", kernel="fp_pow_chain", shape="2^12xFr,e=p-2", ms=k_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    records["fp_pow_chain"] = dict(
+        name="fp_pow_chain", route="cuda", source="zkt_plonk_tpu_torch/csrc/fp_pow_chain.cu",
+        replaces="zkt_plonk_tpu/fields/pallas.py:412", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+
+def _horner(coeffs, x, p):
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % p
+    return acc
+
+
+def parity_ntt_col_pass(records, dev):
+    from zkt_plonk_tpu_torch.fields import BN254_FR
+    from zkt_plonk_tpu_torch.fields.limbs import array_to_ints
+    from zkt_plonk_tpu_torch.ops import ntt, ntt_mr
+    from zkt_plonk_tpu_torch.utils.domain import make_domain
+
+    p = BN254_FR.modulus
+    gen = np.random.default_rng(21)
+    worst = 0
+    # whole transforms: 2^12 against the plain path on the CPU, 2^18 against
+    # host Horner evaluations and round trips
+    for logn in (12, 18):
+        dom = make_domain(BN254_FR, 1 << logn)
+        spec = dom.spec
+        plan = dom.plan(dev)
+        X = random_limbs(spec, 2 << logn, gen).reshape(2, 1 << logn, 16)
+        x = torch.from_numpy(X).to(dev)
+        outs = {
+            "fft": ntt.fft(spec, plan, x),
+            "ifft": ntt.ifft(spec, plan, x),
+            "coset_fft": ntt.coset_fft(spec, plan, x),
+            "coset_ifft": ntt.coset_ifft(spec, plan, x),
+        }
+        if logn == 12:
+            cplan = dom.plan("cpu")
+            xc = torch.from_numpy(X)
+            for name, out in outs.items():
+                ref = getattr(ntt, name)(spec, cplan, xc)
+                if not torch.equal(out.cpu(), ref):
+                    raise AssertionError(f"ntt {name} at 2^12 disagrees with the plain path")
+        else:
+            coeffs = array_to_ints(X[0])
+            fft0 = outs["fft"][0].cpu().numpy()
+            for k in (0, 1, 12345, (1 << logn) - 1):
+                want = _horner(coeffs, pow(dom.group_gen, k, p), p)
+                if array_to_ints(fft0[k : k + 1])[0] != want:
+                    raise AssertionError(f"ntt fft at 2^18 wrong at index {k}")
+            if not torch.equal(ntt.ifft(spec, plan, outs["fft"]), x):
+                raise AssertionError("ifft(fft(x)) != x at 2^18")
+            if not torch.equal(ntt.coset_ifft(spec, plan, outs["coset_fft"]), x):
+                raise AssertionError("coset_ifft(coset_fft(x)) != x at 2^18")
+            # one batched (10, n) iNTT, as in setup: row 3 alone must agree
+            Y = torch.from_numpy(random_limbs(spec, 10 << logn, gen).reshape(10, 1 << logn, 16)).to(dev)
+            batched = ntt.ifft(spec, plan, Y)
+            if not torch.equal(batched[3], ntt.ifft(spec, plan, Y[3])):
+                raise AssertionError("batched iNTT row differs from the single iNTT")
+        say("parity", kernel="ntt_col_pass", transforms=f"2^{logn}", ok=True)
+
+    # the kernel against its plain version at each pass of a 2^18 (10, n) iNTT
+    dom = make_domain(BN254_FR, 1 << 18)
+    spec = dom.spec
+    plan = dom.plan(dev).inv
+    timing = None
+    for d, F in enumerate(plan.Fs):
+        M = 10 * ((1 << 18) // F)
+        x = torch.from_numpy(random_limbs(spec, F * M, gen).reshape(F, M, 16)).to(dev)
+        got = ntt_mr.col_pass(spec, x, plan.stage_tws[d])
+        plain = ntt_mr.col_pass_plain(spec, x, plan.stage_tws[d])
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain)
+        worst = max(worst, err)
+        if err != 0:
+            raise AssertionError(f"ntt_col_pass F={F} disagrees (max_abs_err {err})")
+        k_ms = time_cuda(lambda: ntt_mr.col_pass(spec, x, plan.stage_tws[d]))
+        p_ms = time_cuda(lambda: ntt_mr.col_pass_plain(spec, x, plan.stage_tws[d]), reps=3, warmup=1)
+        # stage s >= 1 multiplies F/2 - F/2^(s+1) of its F/2 butterflies
+        # by a twiddle other than 1
+        logF = F.bit_length() - 1
+        products = sum(F // 2 - F // (2 << s) for s in range(1, logF))
+        ops = M * products * MODMUL_OPS
+        b_ms, b_by = bound_ms(2 * ELEM_BYTES * F * M, ops)
+        say("parity", kernel="ntt_col_pass", shape=f"F={F},M={M}", ms=k_ms, plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        if timing is None:
+            timing = (k_ms, p_ms, b_ms, b_by)
+    k_ms, p_ms, b_ms, b_by = timing
+    records["ntt_col_pass"] = dict(
+        name="ntt_col_pass", route="cuda", source="zkt_plonk_tpu_torch/csrc/ntt_col_pass.cu",
+        replaces="zkt_plonk_tpu/ops/ntt_mr.py:428", max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+
+def parity_ec_add(records, dev):
+    from zkt_plonk_tpu_torch.commitment import kzg
+    from zkt_plonk_tpu_torch.curves import curve_host as ch
+    from zkt_plonk_tpu_torch.curves import make_context
+    from zkt_plonk_tpu_torch.ops import ec, ec_cuda
+
+    ctx = make_context("bn254")
+    spec = ctx.fq_spec
+    ck, _ = kzg.setup(ctx, max_degree=1023, tau=31337, device=dev)
+    pts = ck.powers  # (1024, 3, L), affine-normalized (Z = 1)
+    b3 = ck.b3
+    n = 1 << 16
+    idx = torch.arange(n, device=dev)
+    P = pts[idx % 1024].clone()
+    Q = pts[(7 * idx + 3) % 1024].clone()
+    Q[0] = ec.identity(spec, (), device=dev)  # identity + P
+    Q[1] = P[1]  # P + P
+    Q[2] = ec.neg(spec, P[2])  # P + (-P)
+    P[3] = ec.identity(spec, (), device=dev)  # identity + identity
+    Q[3] = ec.identity(spec, (), device=dev)
+    worst = 0
+    a, b = P, Q
+    for label in ("affine inputs", "projective inputs"):
+        got = ec.add(spec, b3, a, b)
+        plain = ec_cuda.add_plain(spec, b3.limbs, a, b)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain)
+        worst = max(worst, err)
+        if err != 0:
+            raise AssertionError(f"ec_add_complete disagrees on {label} (max_abs_err {err})")
+        sample = list(range(8)) + list(range(1000, 1200))
+        ah = ec.to_affine_host(spec, a[sample])
+        bh = ec.to_affine_host(spec, b[sample])
+        gh = ec.to_affine_host(spec, got[sample])
+        Fq = ctx.Fq
+        for x, y, g in zip(ah, bh, gh):
+            want = ch.add(None if x is None else (Fq(x[0]), Fq(x[1])),
+                          None if y is None else (Fq(y[0]), Fq(y[1])))
+            want = None if want is None else (int(want[0]), int(want[1]))
+            if want != g:
+                raise AssertionError(f"ec_add_complete wrong against host affine add ({label})")
+        # second round: the first round's projective outputs (Z != 1)
+        a, b = got, P.flip(0).contiguous()
+    k_ms = time_cuda(lambda: ec.add(spec, b3, P, Q))
+    p_ms = time_cuda(lambda: ec_cuda.add_plain(spec, b3.limbs, P, Q), reps=3, warmup=1)
+    # RCB Algorithm 7 with a = 0: 12 modular products per add (3b is a small
+    # integer, applied by additions)
+    b_ms, b_by = bound_ms(3 * 3 * ELEM_BYTES * n, n * 12 * MODMUL_OPS)
+    say("parity", kernel="ec_add_complete", shape="2^16 pairs", ms=k_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=worst)
+    records["ec_add_complete"] = dict(
+        name="ec_add_complete", route="cuda",
+        source="zkt_plonk_tpu_torch/csrc/ec_add_complete.cu",
+        replaces="zkt_plonk_tpu/ops/ec_pallas.py:99", max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: the main path
+# ---------------------------------------------------------------------------
+
+
+class TinyCircuit:
+    def synthesize(self, cs):
+        from zkt_plonk_tpu_torch.cs import lt
+
+        a = cs.assign_variable(2)
+        b = cs.assign_variable(3)
+        c = cs.mul_gate(lt(a), lt(b))
+        d = cs.add_gate(lt(c), lt(a))
+        cs.set_variable_public(lt(d))
+        cs.lookup_constrain(lt(a))
+
+
+def golden(dev):
+    from zkt_plonk_tpu_torch.commitment import kzg
+    from zkt_plonk_tpu_torch.cs import LookupTable
+    from zkt_plonk_tpu_torch.plonk import ZKTPlonk
+    from zkt_plonk_tpu_torch.utils import arkserde
+
+    t0 = time.perf_counter()
+    inst = ZKTPlonk(curve="bn254", table=LookupTable([1, 2, 5], size=63), device=dev)
+    ck, cvk = kzg.setup(inst.ctx, max_degree=4 * 64, tau=123456789, device=dev)
+    compiled = inst.compile(TinyCircuit(), ck, cvk)
+    proof = inst.prove(compiled, TinyCircuit(), rng=random.Random(9))
+    inst.verify(compiled, proof, [8])
+    blob = arkserde.proof_to_bytes(proof, inst.ctx.curve.fq.modulus, inst.ctx.curve.fr.modulus)
+    digest = hashlib.sha256(blob).hexdigest()
+    if len(blob) != 802 or digest != GOLDEN_SHA256:
+        raise AssertionError(f"golden proof drifted: {len(blob)} bytes, sha256 {digest}")
+    say("golden", bytes=len(blob), sha256=digest, seconds=round(time.perf_counter() - t0, 3))
+
+
+def withdraw(dev, height=48, notes=3, table_size=1024):
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.circuits.withdraw_instance import build
+    from zkt_plonk_tpu_torch.commitment import kzg
+    from zkt_plonk_tpu_torch.cs import ConstraintSystem
+    from zkt_plonk_tpu_torch.plonk import ZKTPlonk
+    from zkt_plonk_tpu_torch.proof_system.proof import VerificationError
+
+    def clock(t0):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return round(time.perf_counter() - t0, 3)
+
+    t0 = time.perf_counter()
+    circuit, table, pub_inputs = build(height, notes, table_size)
+    inst = ZKTPlonk(curve="bn254", table=table, device=dev)
+    cs = ConstraintSystem(inst.p, setup=True, lookup_table=table)
+    circuit.synthesize(cs)
+    bound = cs.circuit_bound()
+    say("withdraw", height=height, notes=notes, table=table_size, gates=cs.n, n=bound,
+        build_seconds=clock(t0))
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    ck, cvk = kzg.setup(inst.ctx, max_degree=4 * bound, tau=987654321, device=dev)
+    srs_s = clock(t0)
+    t0 = time.perf_counter()
+    compiled = inst.compile(circuit, ck, cvk)
+    compile_s = clock(t0)
+    rng = random.Random(42)
+    t0 = time.perf_counter()
+    inst.prove(compiled, circuit, rng=rng)
+    cold_s = clock(t0)
+    t0 = time.perf_counter()
+    proof = inst.prove(compiled, circuit, rng=rng)
+    warm_s = clock(t0)
+    t0 = time.perf_counter()
+    inst.verify(compiled, proof, pub_inputs)
+    verify_s = clock(t0)
+    launches = dict(_cuda.launches)
+    try:
+        inst.verify(compiled, proof, [(pub_inputs[0] + 1) % inst.p] + pub_inputs[1:])
+    except (VerificationError, AssertionError):
+        tamper = "raised"
+    else:
+        raise AssertionError("verification passed with a tampered public input")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+    say("withdraw", srs_setup_s=srs_s, srs_points=4 * bound + 1, compile_s=compile_s,
+        prove_cold_s=cold_s, prove_warm_s=warm_s, verify_s=verify_s, tamper=tamper,
+        peak_device_gb=round(peak_gb, 2))
+    say("launches", **launches)
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from zkt_plonk_tpu_torch import _cuda
+
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    say("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+        nvidia_smi=f"'{smi}'", torch=torch.__version__, cuda=torch.version.cuda)
+
+    build_s = _cuda.build_all()
+    regs = []
+    for name in _cuda.KERNELS:
+        with open(os.path.join(_cuda.BUILD_DIR, f"{name}.log")) as f:
+            lines = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+        regs.append(f"{name}:{'|'.join(lines)[-160:]}")
+    say("build", seconds=round(build_s, 3), kernels=len(_cuda.KERNELS))
+    for r in regs:
+        say("ptxas", info=r)
+
+    records = {}
+    parity_fp_binop(records, dev)
+    parity_fp_pow_chain(records, dev)
+    parity_ntt_col_pass(records, dev)
+    parity_ec_add(records, dev)
+
+    golden(dev)
+    launches = withdraw(dev)
+    missing = [k for k in _cuda.KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+
+    kernels = []
+    for name in _cuda.KERNELS:
+        rec = records[name]
+        rec["launches"] = launches[name]
+        kernels.append({k: rec[k] for k in (
+            "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,197 @@
+"""Build, load and count the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` into a shared
+library with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``)
+under ``build/torch_kernels/`` at the repository root, at first use; all
+sources build in parallel.  The libraries are loaded with ``ctypes``.
+Nothing here runs at import time.
+
+``launches`` holds one plain integer per kernel: a wrapper adds one where it
+launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from functools import lru_cache
+from typing import Dict
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
+
+KERNELS = ("fp_binop", "fp_pow_chain", "ntt_col_pass", "ec_add_complete")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+launches: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def require_cuda(device) -> "torch.device":
+    """``device`` as a torch.device; raises if CUDA is asked for but absent."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha256()
+    for fn in (f"{name}.cu", "field.cuh"):
+        with open(os.path.join(CSRC_DIR, fn), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_all() -> float:
+    """Compile every kernel that is not built yet, one nvcc per source, all
+    started together.  Returns the wall time in seconds; raises with the
+    compiler's output if any build fails."""
+    with _lock:
+        t0 = time.perf_counter()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = []
+        for name in KERNELS:
+            out = _lib_path(name)
+            if os.path.exists(out):
+                continue
+            tmp = f"{out}.tmp{os.getpid()}"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        failed = []
+        for name, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
+                f.write(log)
+            if proc.returncode != 0:
+                failed.append(f"--- {name} (exit {proc.returncode}) ---\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        return time.perf_counter() - t0
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built on first use)."""
+    cached = _libs.get(name)
+    if cached is not None:
+        return cached
+    path = _lib_path(name)
+    if not os.path.exists(path):
+        build_all()
+    with _lock:
+        if name not in _libs:
+            _libs[name] = _declare(name, ctypes.CDLL(path))
+        return _libs[name]
+
+
+def _declare(name: str, cdll: ctypes.CDLL) -> ctypes.CDLL:
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    LLP = ctypes.POINTER(ctypes.c_longlong)
+    UP = ctypes.POINTER(ctypes.c_uint)
+    sigs = {
+        "fp_binop": ("zk_fp_binop", [I, I, P, P, P, LL, I, LLP, LLP, LLP, UP, P]),
+        "fp_pow_chain": ("zk_fp_pow_chain", [I, P, P, LL, UP, I, UP, P]),
+        "ntt_col_pass": ("zk_ntt_col_pass", [I, P, P, I, LL, P, UP, P]),
+        "ec_add_complete": (
+            "zk_ec_add_complete", [I, P, P, P, LL, I, LLP, LLP, LLP, I, UP, P]
+        ),
+    }
+    fn_name, argtypes = sigs[name]
+    fn = getattr(cdll, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return cdll
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError_t {err}")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@lru_cache(maxsize=None)
+def field_consts(spec):
+    """ctypes uint32 array [p, R^2, R^4 (NW words each), -p^-1 mod 2^32]."""
+    nw = spec.n_limbs // 2
+    p = spec.modulus
+    R = 1 << (32 * nw)
+
+    def words(v):
+        return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
+
+    pinv = (-pow(p, -1, 1 << 32)) % (1 << 32)
+    vals = words(p) + words(R * R % p) + words(pow(R, 4, p)) + [pinv]
+    return (ctypes.c_uint * len(vals))(*vals)
+
+
+def ll_array(vals):
+    return (ctypes.c_longlong * max(1, len(vals)))(*vals)
+
+
+def broadcast_meta(out_shape, a, b, elem_dims: int):
+    """Collapse the outer (non-element) dims of ``a``/``b`` expanded to
+    ``out_shape`` into at most MAXD dims of (shape, stride_a, stride_b) in
+    element units.  The trailing ``elem_dims`` dims must be contiguous."""
+    outer = list(out_shape[: len(out_shape) - elem_dims])
+    esize = 1
+    for s in out_shape[len(out_shape) - elem_dims:]:
+        esize *= s
+    ea = a.expand(*out_shape)
+    eb = b.expand(*out_shape)
+    dims = []
+    for d, size in enumerate(outer):
+        if size == 1:
+            continue
+        dims.append([size, ea.stride(d) // esize, eb.stride(d) // esize])
+    merged = []
+    for size, sa, sb in dims:
+        if merged and merged[-1][1] == sa * size and merged[-1][2] == sb * size:
+            merged[-1][0] *= size
+            merged[-1][1] = sa
+            merged[-1][2] = sb
+        else:
+            merged.append([size, sa, sb])
+    if not merged:
+        merged = [[1, 0, 0]]
+    return merged

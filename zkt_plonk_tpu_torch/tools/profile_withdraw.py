@@ -1,0 +1,176 @@
+"""Where the time of one withdraw proof goes, on one CUDA card.
+
+Usage (from the repository root, on a machine with a card):
+
+    python -m zkt_plonk_tpu_torch.tools.profile_withdraw [--height 48]
+        [--notes 3] [--table 1024] [--out profile_withdraw.json]
+
+It builds the withdraw circuit (default: the reference's HEIGHT=48,
+NOTES=3, TABLE=1024, n = 2^18), sets up the SRS, compiles, proves once to
+warm up, then
+  1. proves again with every prover phase timed on the host clock around a
+     ``torch.cuda.synchronize()`` (synthesis, the iNTT/blinding batches, the
+     MSM commit batches, the z and quotient rounds, evaluations,
+     linearization, openings; the remainder is host work in ``prove``),
+     counting the launches of each kernel in that proof;
+  2. proves a third time under ``torch.profiler`` and sums the device time
+     of every kernel by name; busy time over the wall time of that proof
+     gives the device's busy share (profiling slows the host, so that
+     proof's wall time is longer than the unprofiled one).
+The card's name and power limit are printed beside the numbers, and the
+whole record is written as JSON to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+
+
+def _sync():
+    torch.cuda.synchronize()
+
+
+def _timed(table, stack, name, fn):
+    """Wrap ``fn`` to add its EXCLUSIVE time (minus timed callees) to table."""
+
+    def wrapper(*args, **kwargs):
+        _sync()
+        t0 = time.perf_counter()
+        stack.append(0.0)
+        try:
+            out = fn(*args, **kwargs)
+            _sync()
+        finally:
+            elapsed = time.perf_counter() - t0
+            table[name] += elapsed - stack.pop()
+            if stack:
+                stack[-1] += elapsed
+        return out
+
+    return wrapper
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--height", type=int, default=48)
+    ap.add_argument("--notes", type=int, default=3)
+    ap.add_argument("--table", type=int, default=1024)
+    ap.add_argument("--out", default="profile_withdraw.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_withdraw needs a CUDA card")
+
+    from .. import _cuda
+    from ..circuits.withdraw_instance import build
+    from ..commitment import kzg
+    from ..cs import ConstraintSystem
+    from ..plonk import ZKTPlonk
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    dev = torch.device("cuda")
+    circuit, table, pub = build(args.height, args.notes, args.table)
+    inst = ZKTPlonk(curve="bn254", table=table, device=dev)
+    cs = ConstraintSystem(inst.p, setup=True, lookup_table=table)
+    circuit.synthesize(cs)
+    bound = cs.circuit_bound()
+    ck, cvk = kzg.setup(inst.ctx, max_degree=4 * bound, tau=987654321, device=dev)
+    t0 = time.perf_counter()
+    compiled = inst.compile(circuit, ck, cvk)
+    _sync()
+    compile_s = time.perf_counter() - t0
+    rng = random.Random(42)
+    inst.prove(compiled, circuit, rng=rng)  # warm-up: builds the prover's tables
+
+    # 1. phase timing
+    phases = defaultdict(float)
+    stack = []
+    prover = compiled._prover
+    originals = {}
+    for name in ("commit_batch", "z_round", "quotient_round", "evaluate", "linearize", "open_batch"):
+        originals[name] = getattr(prover, name)
+        setattr(prover, name, _timed(phases, stack, name, originals[name]))
+    commit_many = prover.committer.commit_many
+    prover.committer.commit_many = _timed(phases, stack, "msm_commits", commit_many)
+    synth = circuit.synthesize
+    circuit.synthesize = _timed(phases, stack, "synthesize", synth)
+    _sync()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    proof = inst.prove(compiled, circuit, rng=rng)
+    _sync()
+    prove_s = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    for name, fn in originals.items():
+        setattr(prover, name, fn)
+    prover.committer.commit_many = commit_many
+    circuit.synthesize = synth
+    phases = dict(phases)
+    phases["host_rest"] = prove_s - sum(phases.values())
+    inst.verify(compiled, proof, pub)
+
+    # 2. device time by kernel under the profiler
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    _sync()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        inst.prove(compiled, circuit, rng=rng)
+        _sync()
+        prof_wall = time.perf_counter() - t0
+    kernels = defaultdict(lambda: [0.0, 0])
+    for evt in prof.key_averages():
+        # device-side events only (kernels, copies); the aten op that
+        # launched a kernel reports the same device time again
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if evt.key.startswith("Activity Buffer"):  # the profiler's own
+            continue
+        if evt.self_device_time_total > 0:
+            kernels[evt.key][0] += evt.self_device_time_total / 1e6
+            kernels[evt.key][1] += evt.count
+    busy = sum(v[0] for v in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:20]
+
+    record = {
+        "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": smi,
+        "config": {"height": args.height, "notes": args.notes, "table": args.table, "n": bound},
+        "compile_s": compile_s,
+        "prove_s": prove_s,
+        "phases_s": phases,
+        "launches_per_proof": launches,
+        "profiled_prove_wall_s": prof_wall,
+        "device_busy_s": busy,
+        "device_busy_share": busy / prof_wall if prof_wall else None,
+        "top_device_ops": [
+            {"name": k, "seconds": v[0], "calls": v[1], "share_of_busy": v[0] / busy}
+            for k, v in top
+        ],
+    }
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(record, f, indent=1)
+    print(f"card: {smi}")
+    print(f"n={bound} compile_s={compile_s:.3f} prove_s={prove_s:.3f}")
+    print(f"kernel launches in one proof: {launches}")
+    for k, v in sorted(phases.items(), key=lambda kv: -kv[1]):
+        print(f"  phase {k:16s} {v:.4f} s")
+    print(f"profiled prove wall {prof_wall:.3f} s, device busy {busy:.3f} s "
+          f"({100 * busy / prof_wall:.1f}%)")
+    for k, v in top:
+        print(f"  {v[0] * 1e3:10.2f} ms {v[1]:7d} calls  {k[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,111 @@
+"""Warm MSM commit time on one CUDA card against the bucket group count G.
+
+Usage (from the repository root, on a machine with a card):
+
+    python -m zkt_plonk_tpu_torch.tools.sweep_msm_groups [--log-n 18]
+        [--batches 1,2,3,6,10] [--groups 32,64,...,2048] [--reps 3]
+        [--out sweep_msm_groups.json]
+
+For each batch size B (the prover's commit batches at n = 2^18 are
+B = 1, 2, 3, 6 and 10 polynomials of n + 4 coefficients) and each G, it
+commits B random polynomials to the SRS exactly as
+``kzg.Committer.commit_many`` does (``msm.msm_totals`` with ``groups=G``,
+the copy of the window totals to the host, the host window fold), once to
+warm up and ``--reps`` times on the host clock after a
+``torch.cuda.synchronize()``, and records the median.  The card's name and
+power limit are printed beside the numbers and the whole record is written
+as JSON to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--log-n", type=int, default=18)
+    ap.add_argument("--batches", default="1,2,3,6,10")
+    ap.add_argument("--groups", default="32,64,128,256,512,1024,2048")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--out", default="sweep_msm_groups.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("sweep_msm_groups needs a CUDA card")
+
+    from ..commitment import kzg
+    from ..curves import make_context
+    from ..ops import msm
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    dev = torch.device("cuda")
+    ctx = make_context("bn254")
+    m = (1 << args.log_n) + 4
+    ck, _ = kzg.setup(ctx, max_degree=m - 1, tau=987654321, device=dev)
+    fr_bits = ctx.curve.fr.modulus.bit_length()
+    c = msm.msm_window_size(m)
+    top = int(ctx.fr_spec.modulus_limbs[-1])
+    gen = np.random.default_rng(args.seed)
+    batches = [int(b) for b in args.batches.split(",")]
+    groups = [int(g) for g in args.groups.split(",")]
+
+    def commit(scalars, G):
+        totals = msm.msm_totals(
+            ctx.fq_spec, ck.b3, ck.powers, scalars, fr_bits, c=c, groups=G
+        ).cpu().numpy()
+        return [msm.fold_windows_host(ctx.fq_spec, ctx.Fq, t, c) for t in totals]
+
+    print(f"card: {smi}  m={m} c={c}", flush=True)
+    rows = []
+    for B in batches:
+        limbs = gen.integers(0, 1 << 16, size=(B, m, 16), dtype=np.int64)
+        limbs[..., 15] = gen.integers(0, top, size=(B, m))
+        scalars = torch.from_numpy(limbs.astype(np.int32)).to(dev)
+        want = None
+        for G in groups:
+            got = commit(scalars, G)  # warm-up
+            if want is None:
+                want = got
+            elif got != want:
+                raise AssertionError(f"B={B}: G={G} changed the commitments")
+            times = []
+            for _ in range(args.reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                commit(scalars, G)
+                times.append(time.perf_counter() - t0)
+            rows.append({"batch": B, "groups": G, "seconds": statistics.median(times),
+                         "all_seconds": times, "steps": -(-m // G)})
+            print(f"B={B:3d} G={G:5d} steps={-(-m // G):6d} "
+                  f"median {statistics.median(times) * 1e3:9.2f} ms  {times}", flush=True)
+        del scalars
+        torch.cuda.empty_cache()
+    best = {}
+    for r in rows:
+        if r["batch"] not in best or r["seconds"] < best[r["batch"]]["seconds"]:
+            best[r["batch"]] = r
+    for B, r in best.items():
+        print(f"best for B={B}: G={r['groups']} ({r['seconds'] * 1e3:.2f} ms)", flush=True)
+    record = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "m": m, "c": c,
+              "reps": args.reps, "rows": rows,
+              "best": {str(B): r["groups"] for B, r in best.items()}}
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(record, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
