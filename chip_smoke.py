@@ -5,12 +5,18 @@ card (it exits non-zero without one), ``nvcc`` and nothing else.
 
 Phases, one line each:
   1. device   — the card's name, and nvidia-smi's name and power limit;
-  2. build    — nvcc builds of the four kernels in csrc/ (in parallel);
+  2. build    — nvcc builds of the five kernels in csrc/ (in parallel),
+                with ptxas's register report and each kernel's SASS
+                instruction mix;
   3. parity   — each kernel against its plain PyTorch version on the same
                 card tensors at the main path's shapes (and against Python
                 ints on a sample), with its device time per call (CUDA
                 events around calls queued back to back), the plain
-                version's time and the bound;
+                version's time and the bound; K4a (the MSM's bucket
+                accumulation) at n = 2^18 + 4 with B = 3 scalar vectors,
+                including 0, 1, r - 1, negative-zero digits and runs of
+                one digit, and its time at the prover's batches B = 1, 2,
+                3, 6;
   4. golden   — the TinyCircuit proof on the card: 802 bytes, fixed sha256;
   5. withdraw — the withdraw circuit at HEIGHT=48, NOTES=3, TABLE=1024
                 (n = 2^18): SRS setup, compile, cold and warm prove, verify,
@@ -306,6 +312,28 @@ def parity_ntt_col_pass(records, dev):
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
         if timing is None:
             timing = (k_ms, p_ms, b_ms, b_by)
+    # K1 on the pass's inter-pass table, as ops/ntt_mr.py:_mul_table calls it
+    # (the counterpart of zkt_plonk_tpu/ops/ntt_mr.py:461 _mul3d): x (F, 10 M)
+    # times a (rows, M) table broadcast over the 10 polynomials
+    from zkt_plonk_tpu_torch.fields import cuda as fc
+
+    d = next(i for i, t in enumerate(plan.post) if t is not None)
+    tbl = plan.post[d]
+    F, M = plan.Fs[d], (1 << 18) // plan.Fs[d]
+    x = torch.from_numpy(random_limbs(spec, 10 * F * M, gen).reshape(F, 10 * M, 16)).to(dev)
+    got = ntt_mr._mul_table(spec, x, tbl, 10)
+    plain = fc.binop_plain(spec, "mul", x.reshape(F, 10, M, 16), tbl.reshape(tbl.shape[0], 1, M, 16))
+    torch.cuda.synchronize()
+    err = max_abs_err(got, plain.reshape(F, 10 * M, 16))
+    if err != 0:
+        raise AssertionError(f"fp_binop on the NTT table disagrees (max_abs_err {err})")
+    m_ms = time_cuda(lambda: ntt_mr._mul_table(spec, x, tbl, 10))
+    mp_ms = time_cuda(lambda: fc.binop_plain(spec, "mul", x.reshape(F, 10, M, 16),
+                                             tbl.reshape(tbl.shape[0], 1, M, 16)), reps=3, warmup=1)
+    b_ms, b_by = bound_ms((2 * x.numel() + tbl.numel()) * 4, F * 10 * M * MODMUL_OPS)
+    say("parity", kernel="fp_binop.table", shape=f"F={F},10x{M},table={tuple(tbl.shape[:2])}",
+        ms=m_ms, plain_ms=mp_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+
     k_ms, p_ms, b_ms, b_by = timing
     records["ntt_col_pass"] = dict(
         name="ntt_col_pass", route="cuda", source="zkt_plonk_tpu_torch/csrc/ntt_col_pass.cu",
@@ -314,15 +342,26 @@ def parity_ntt_col_pass(records, dev):
     )
 
 
+_SRS = {}
+
+
+def srs_1024(dev):
+    """1024 SRS points on the card (affine-normalized, Z = 1) and their ck."""
+    if dev not in _SRS:
+        from zkt_plonk_tpu_torch.commitment import kzg
+        from zkt_plonk_tpu_torch.curves import make_context
+
+        _SRS[dev] = kzg.setup(make_context("bn254"), max_degree=1023, tau=31337, device=dev)[0]
+    return _SRS[dev]
+
+
 def parity_ec_add(records, dev):
-    from zkt_plonk_tpu_torch.commitment import kzg
     from zkt_plonk_tpu_torch.curves import curve_host as ch
-    from zkt_plonk_tpu_torch.curves import make_context
     from zkt_plonk_tpu_torch.ops import ec, ec_cuda
 
-    ctx = make_context("bn254")
+    ck = srs_1024(dev)
+    ctx = ck.ctx
     spec = ctx.fq_spec
-    ck, _ = kzg.setup(ctx, max_degree=1023, tau=31337, device=dev)
     pts = ck.powers  # (1024, 3, L), affine-normalized (Z = 1)
     b3 = ck.b3
     n = 1 << 16
@@ -370,6 +409,108 @@ def parity_ec_add(records, dev):
         replaces="zkt_plonk_tpu/ops/ec_pallas.py:99", max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
+
+
+def _acc_bound(n, BW, G, K):
+    """K4a's bound: every one of the BW * n_pad steps is one complete add
+    (12 modular products); bytes: the points and digits read once and the
+    bucket tensor written once."""
+    n_pad = -(-n // G) * G
+    nbytes = 3 * ELEM_BYTES * n + 2 * BW * n_pad + 3 * ELEM_BYTES * G * BW * K
+    return bound_ms(nbytes, BW * n_pad * 12 * MODMUL_OPS)
+
+
+def _host_row(ck, pts_host, digits, g, bw, G, K):
+    """Buckets of row (g, bw) by host affine arithmetic."""
+    from zkt_plonk_tpu_torch.curves import curve_host as ch
+
+    Fq = ck.ctx.Fq
+    rows = [None] * K
+    codes = digits[bw, g::G].tolist()
+    for j, code in enumerate(codes):
+        pt = pts_host[j * G + g] if j * G + g < len(pts_host) else None
+        if pt is not None:
+            pt = (Fq(pt[0]), Fq(-pt[1] if code < 0 else pt[1]))
+        k = ~code if code < 0 else code
+        rows[k] = ch.add(rows[k], pt)
+    return [None if r is None else (int(r[0]), int(r[1])) for r in rows]
+
+
+def parity_ec_bucket_accumulate(records, dev, log_n=18):
+    from zkt_plonk_tpu_torch.fields.limbs import ints_to_array
+    from zkt_plonk_tpu_torch.ops import ec, msm
+
+    ck = srs_1024(dev)
+    ctx = ck.ctx
+    spec = ctx.fq_spec
+    r = ctx.curve.fr.modulus
+    fr_bits = r.bit_length()
+    top = int(ctx.fr_spec.modulus_limbs[-1])
+    gen = np.random.default_rng(31)
+    c = 8
+    K = (1 << (c - 1)) + 1
+    n = (1 << log_n) + 4
+
+    def scalars(B):
+        limbs = gen.integers(0, 1 << 16, size=(B, n, 16), dtype=np.int64)
+        limbs[..., 15] = gen.integers(0, top, size=(B, n))
+        return limbs.astype(np.int32)
+
+    # parity at B = 3 (the prover's middle batch), n not a multiple of G
+    B = 3
+    G = msm.group_count(n, c, B, msm.num_windows(fr_bits + 1, c))
+    S_np = scalars(B)
+    edge = ints_to_array([0, 1, r - 1, 0xFFFF, (1 << 253) - 1, (r - 1) // 2], 16)
+    S_np[0, : len(edge)] = edge
+    # runs of one digit: scalar vector 1 repeats one scalar on the points of
+    # groups 0..7 (every step of those rows hits one bucket), scalar vector
+    # 2 repeats scalars in runs of 2 and 5 steps on groups 8..15
+    for g in range(min(8, G)):
+        S_np[1, g::G] = S_np[1, g]
+    for g in range(8, min(16, G)):
+        steps = np.arange(g, n, G)
+        run = 2 if g < 12 else 5
+        S_np[2, steps] = S_np[2, steps - G * ((steps // G) % run)]
+    pts = ck.powers[torch.arange(n, device=dev) % 1024].contiguous()
+    S = torch.from_numpy(S_np).to(dev)
+    digits = msm.digit_rows(S, c, fr_bits, G)
+    got = msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c)
+    plain = msm.bucket_accumulate_plain(spec, ck.b3, pts, digits, G, c)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, plain)
+    if err != 0:
+        raise AssertionError(f"ec_bucket_accumulate disagrees (max_abs_err {err})")
+    W = digits.shape[0] // B
+    pts_host = ec.to_affine_host(spec, ck.powers)
+    pts_host = [pts_host[i % 1024] for i in range(n)]
+    digits_h = digits.cpu()
+    for g, bw in ((0, 0), (3 % G, W + 5), (9 % G, 2 * W + 1), (G - 1, 3 * W - 1)):
+        if ec.to_affine_host(spec, got[g, bw]) != _host_row(ck, pts_host, digits_h, g, bw, G, K):
+            raise AssertionError(f"ec_bucket_accumulate row ({g}, {bw}) wrong against host adds")
+    k_ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c), reps=3, warmup=1)
+    p_ms = time_cuda(lambda: msm.bucket_accumulate_plain(spec, ck.b3, pts, digits, G, c),
+                     reps=1, warmup=0)
+    b_ms, b_by = _acc_bound(n, B * W, G, K)
+    say("parity", kernel="ec_bucket_accumulate", shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", ms=k_ms,
+        plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    records["ec_bucket_accumulate"] = dict(
+        name="ec_bucket_accumulate", route="cuda",
+        source="zkt_plonk_tpu_torch/csrc/ec_bucket_accumulate.cu",
+        replaces="zkt_plonk_tpu/ops/ec_pallas.py:99", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    del got, plain, digits
+    # the prover's other commit batches
+    for B in (1, 2, 6):
+        G = msm.group_count(n, c, B, msm.num_windows(fr_bits + 1, c))
+        digits = msm.digit_rows(torch.from_numpy(scalars(B)).to(dev), c, fr_bits, G)
+        ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c),
+                       reps=3, warmup=1)
+        b_ms, b_by = _acc_bound(n, digits.shape[0], G, K)
+        say("time", kernel="ec_bucket_accumulate", shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", ms=ms,
+            bound_ms=b_ms, bound_by=b_by)
+        del digits
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -465,6 +606,32 @@ def withdraw(dev, height=48, notes=3, table_size=1024):
     return launches
 
 
+def sass_mix() -> None:
+    """Each kernel function's SASS instruction count, split into the integer
+    multiply pipe (IMAD*) and the integer ALU pipe (IADD3, LOP3, SEL, ...),
+    from cuobjdump where the toolkit has it."""
+    import re
+    from collections import Counter
+
+    from zkt_plonk_tpu_torch import _cuda
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        say("sass", info="cuobjdump not found")
+        return
+    alu = ("IADD3", "LOP3", "SEL", "ISETP", "SHF", "LEA", "PRMT", "IABS", "VIADD")
+    for name in _cuda.KERNELS:
+        out = subprocess.run([tool, "-sass", _cuda._lib_path(name)], capture_output=True,
+                             text=True, timeout=120).stdout
+        for body in re.split(r"\n\s+Function : ", out)[1:]:
+            ops = Counter(m.group(1) for m in re.finditer(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body))
+            fn = re.sub(r"^_ZN2zk\d+", "", body.split()[0])[:32]
+            say("sass", kernel=name, fn=fn, instructions=sum(ops.values()),
+                imad=sum(v for k, v in ops.items() if k.startswith("IMAD")),
+                alu=sum(v for k, v in ops.items() if k.startswith(alu)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -483,16 +650,18 @@ def main() -> int:
     for name in _cuda.KERNELS:
         with open(os.path.join(_cuda.BUILD_DIR, f"{name}.log")) as f:
             lines = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-        regs.append(f"{name}:{'|'.join(lines)[-160:]}")
+        regs.append(f"{name}:{'|'.join(lines)[-400:]}")
     say("build", seconds=round(build_s, 3), kernels=len(_cuda.KERNELS))
     for r in regs:
         say("ptxas", info=r)
+    sass_mix()
 
     records = {}
     parity_fp_binop(records, dev)
     parity_fp_pow_chain(records, dev)
     parity_ntt_col_pass(records, dev)
     parity_ec_add(records, dev)
+    parity_ec_bucket_accumulate(records, dev)
 
     golden(dev)
     launches = withdraw(dev)

@@ -6,7 +6,13 @@ JAX package.
   inputs;
 * ``msm`` against ``zkt_plonk_tpu.curves.host.msm`` as affine ints at 68
   points;
-* ``fixed_base_msm`` at 16 scalars against host scalar multiplication.
+* ``fixed_base_msm`` at 16 scalars against host scalar multiplication;
+* the bucket accumulation (plain CPU version of kernel K4a) against
+  ``zkt_plonk_tpu.ops.msm._accumulate`` as bucket limbs, bit for bit, at
+  n = 68, c = 4, G = 8 (identity padding to 72 points), on random scalars
+  with 0, 1, r - 1 and a negative-zero digit, and on scalars that hit one
+  bucket on consecutive steps; a batch of two against two single calls;
+  and the bucket sums at G = 16 against the reference's.
 """
 
 import os
@@ -21,6 +27,7 @@ import torch
 from zkt_plonk_tpu.curves import curve_host as jch
 from zkt_plonk_tpu.curves import make_context as jax_make_context
 from zkt_plonk_tpu.ops import ec as jec
+from zkt_plonk_tpu.ops import msm as jmsm
 from zkt_plonk_tpu_torch.commitment import kzg
 from zkt_plonk_tpu_torch.curves import make_context
 from zkt_plonk_tpu_torch.fields.limbs import ints_to_array
@@ -120,3 +127,86 @@ def test_fixed_base_msm_matches_host(srs):
     want = [jch.scalar_mul(jg1, s) for s in scalars]
     want = [None if w is None else (int(w[0]), int(w[1])) for w in want]
     assert ec.to_affine_host(ctx.fq_spec, out) == want
+
+
+ACC_N, ACC_C, ACC_G = 68, 4, 8
+
+
+def _bucket_scalars(kind, r):
+    rng = random.Random(7)
+    if kind == "random":
+        s = [rng.randrange(r) for _ in range(ACC_N)]
+        # 0xFFFF: window 0 is 15 > 8, so window 1 is 15 + 1 = 16, a negative zero
+        s[:5] = [0, 1, r - 1, 0xFFFF, (r - 1) // 2]
+    else:
+        # every point of group g (g, g + G, ...) gets scalar base[g]: each
+        # bucket row sees the same digit on all of its consecutive steps;
+        # groups 4..7 repeat digits in runs of two
+        base = [rng.randrange(r) for _ in range(ACC_G)]
+        s = [base[i % ACC_G] if i % ACC_G < 4 else base[(i // (2 * ACC_G)) % ACC_G] for i in range(ACC_N)]
+    return s
+
+
+@pytest.fixture(scope="module")
+def jax_buckets(srs):
+    """The reference's (W, G, K, 3, L) buckets for each scalar kind."""
+    ctx, ck = srs
+    jspec = jax_make_context("bn254").fq_spec
+    b3 = jec.b3_const(jspec, 3)
+    r = ctx.curve.fr.modulus
+    fn = jax.jit(lambda p, s: jmsm._accumulate(jspec, b3, p, s, r.bit_length(), ACC_C, ACC_G))
+    pts = jnp.asarray(ck.powers.numpy().astype(np.uint32))
+    out = {}
+    for kind in ("random", "runs"):
+        sc = ints_to_array(_bucket_scalars(kind, r), 16).astype(np.uint32)
+        out[kind] = np.asarray(fn(pts, jnp.asarray(sc))).astype(np.int32)
+    return out
+
+
+def _port_buckets(ctx, ck, scalars, G):
+    S = torch.from_numpy(ints_to_array(scalars, 16).astype(np.int32)).reshape(-1, ACC_N, 16)
+    fr_bits = ctx.curve.fr.modulus.bit_length()
+    return msm._accumulate(ctx.fq_spec, ck.b3, ck.powers, S, fr_bits, ACC_C, G)
+
+
+@pytest.mark.parametrize("kind", ["random", "runs"])
+def test_bucket_accumulate_matches_jax_bit_for_bit(srs, jax_buckets, kind):
+    ctx, ck = srs
+    got = _port_buckets(ctx, ck, _bucket_scalars(kind, ctx.curve.fr.modulus), ACC_G)
+    want = jax_buckets[kind]  # (W, G, K, 3, L)
+    assert got.shape == (ACC_G,) + want.shape[:1] + want.shape[2:]
+    np.testing.assert_array_equal(got.numpy(), want.transpose(1, 0, 2, 3, 4))
+
+
+def test_signed_digit_codes_keep_negative_zero():
+    S = torch.from_numpy(ints_to_array([0xFFFF, 0xFF, 8, 9], 16).astype(np.int32))
+    codes = msm.signed_digit_codes(S, 4, 254)
+    # 0xFFFF: -1 (carry), then 15 + 1 = 16 -> negative zero, ...; 0xFF: -1, 0 + ...
+    assert codes[:3, 0].tolist() == [~1, ~0, ~0]
+    assert codes[:3, 1].tolist() == [~1, ~0, 1]
+    assert codes[:2, 2].tolist() == [8, 0]
+    assert codes[:2, 3].tolist() == [~7, 1]
+
+
+def test_bucket_accumulate_batch_matches_single_calls(srs):
+    ctx, ck = srs
+    r = ctx.curve.fr.modulus
+    rng = random.Random(11)
+    scalars = [rng.randrange(r) for _ in range(2 * ACC_N)]
+    both = _port_buckets(ctx, ck, scalars, ACC_G)  # (G, 2W, K, 3, L)
+    W = both.shape[1] // 2
+    for b in range(2):
+        one = _port_buckets(ctx, ck, scalars[b * ACC_N:(b + 1) * ACC_N], ACC_G)
+        assert torch.equal(both[:, b * W:(b + 1) * W], one)
+
+
+def test_bucket_sums_with_more_padding_match_jax(srs, jax_buckets):
+    """G = 16 pads 68 points to 80 with the identity: the buckets differ from
+    the reference's G = 8 ones, their sums over the groups do not."""
+    ctx, ck = srs
+    spec = ctx.fq_spec
+    got = _port_buckets(ctx, ck, _bucket_scalars("random", ctx.curve.fr.modulus), 16)
+    got_sum = msm._tree_reduce_points(spec, ck.b3, got)  # (W, K, 3, L)
+    want = torch.from_numpy(np.ascontiguousarray(jax_buckets["random"].transpose(1, 0, 2, 3, 4)))
+    want_sum = msm._tree_reduce_points(spec, ck.b3, want)
+    assert ec.to_affine_host(spec, got_sum) == ec.to_affine_host(spec, want_sum)

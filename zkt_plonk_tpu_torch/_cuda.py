@@ -26,7 +26,9 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 
-KERNELS = ("fp_binop", "fp_pow_chain", "ntt_col_pass", "ec_add_complete")
+KERNELS = (
+    "fp_binop", "fp_pow_chain", "ntt_col_pass", "ec_add_complete", "ec_bucket_accumulate",
+)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -67,8 +69,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
+    """The library's path, named by a hash of its source, every shared
+    header under ``csrc/`` and the flags, so that any edit rebuilds it."""
     h = hashlib.sha256()
-    for fn in (f"{name}.cu", "field.cuh"):
+    headers = sorted(fn for fn in os.listdir(CSRC_DIR) if fn.endswith(".cuh"))
+    for fn in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC_DIR, fn), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -131,6 +136,9 @@ def _declare(name: str, cdll: ctypes.CDLL) -> ctypes.CDLL:
         "ec_add_complete": (
             "zk_ec_add_complete", [I, P, P, P, LL, I, LLP, LLP, LLP, I, UP, P]
         ),
+        "ec_bucket_accumulate": (
+            "zk_ec_bucket_accumulate", [I, P, LL, P, P, P, I, I, I, LL, I, UP, P]
+        ),
     }
     fn_name, argtypes = sigs[name]
     fn = getattr(cdll, fn_name)
@@ -152,7 +160,8 @@ def stream_ptr(t) -> int:
 
 @lru_cache(maxsize=None)
 def field_consts(spec):
-    """ctypes uint32 array [p, R^2, R^4 (NW words each), -p^-1 mod 2^32]."""
+    """ctypes uint32 array [p, R^2, R^4 (NW words each), -p^-1 mod 2^32,
+    2p, R mod p (NW words each)]."""
     nw = spec.n_limbs // 2
     p = spec.modulus
     R = 1 << (32 * nw)
@@ -162,6 +171,7 @@ def field_consts(spec):
 
     pinv = (-pow(p, -1, 1 << 32)) % (1 << 32)
     vals = words(p) + words(R * R % p) + words(pow(R, 4, p)) + [pinv]
+    vals += words(2 * p) + words(R % p)
     return (ctypes.c_uint * len(vals))(*vals)
 
 

@@ -24,10 +24,12 @@ struct FieldConsts {
   uint32_t r2[NW];  // R^2 mod p
   uint32_t r4[NW];  // R^4 mod p
   uint32_t pinv;    // -p^-1 mod 2^32
+  uint32_t p2[NW];  // 2p (below R for every field the kernels take)
+  uint32_t rm[NW];  // R mod p, the Montgomery form of 1
 };
 
-// Host helper: the wrapper passes p, R^2, R^4 (NW words each) and pinv
-// as one flat uint32 array.
+// Host helper: the wrapper passes p, R^2, R^4 (NW words each), pinv, 2p
+// and R mod p (NW words each) as one flat uint32 array.
 template <int L>
 inline FieldConsts<L> consts_from_host(const uint32_t* h) {
   constexpr int NW = L / 2;
@@ -36,6 +38,8 @@ inline FieldConsts<L> consts_from_host(const uint32_t* h) {
     fc.p[i] = h[i];
     fc.r2[i] = h[NW + i];
     fc.r4[i] = h[2 * NW + i];
+    fc.p2[i] = h[3 * NW + 1 + i];
+    fc.rm[i] = h[4 * NW + 1 + i];
   }
   fc.pinv = h[3 * NW];
   return fc;
@@ -218,26 +222,6 @@ __device__ __forceinline__ void fmul(uint32_t r[L / 2], const uint32_t a[L / 2],
   uint32_t t[L / 2];
   mont_mul<L>(t, a, b, fc);
   mont_mul<L>(r, t, fc.r2, fc);
-}
-
-// r = v * x mod p for a small non-negative integer v (double-and-add)
-template <int L>
-__device__ __forceinline__ void fmul_small(uint32_t r[L / 2], const uint32_t x[L / 2], int v,
-                                           const FieldConsts<L>& fc) {
-  constexpr int NW = L / 2;
-  uint32_t acc[NW];
-#pragma unroll
-  for (int j = 0; j < NW; ++j) acc[j] = 0;
-  int top = 31 - __clz(v > 0 ? v : 1);
-  for (int bit = top; bit >= 0; --bit) {
-    fadd<L>(acc, acc, acc, fc);
-    if ((v >> bit) & 1) fadd<L>(acc, acc, x, fc);
-  }
-  copy_w<NW>(r, acc);
-}
-
-inline int launch_blocks(long long n, int threads) {
-  return (int)((n + threads - 1) / threads);
 }
 
 }  // namespace zk

@@ -4,8 +4,9 @@ counterpart of ``zkt_plonk_tpu/ops/ec_pallas.py``.
 Complete projective addition (Renes-Costello-Batina 2015, Algorithm 7,
 a = 0) on points ``(..., 3, L)`` int32 of canonical limbs.  For points on
 the card the wrapper launches ``csrc/ec_add_complete.cu`` (one thread per
-point pair, 3b applied as a small integer); for points on the CPU it runs
-the plain version in int64 limb math.
+point pair, 3b applied as a small integer, the formula of ``csrc/ec.cuh``
+that the MSM's bucket accumulation K4a shares); for points on the CPU it
+runs the plain version in int64 limb math.
 """
 
 from __future__ import annotations

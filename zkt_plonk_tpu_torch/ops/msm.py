@@ -6,16 +6,13 @@ by pairwise halving, the weighted bucket sum as a suffix scan and a sum,
 the window fold on the host — with the bucket layout chosen for the card:
 
 * a whole BATCH of B scalar vectors over the same points accumulates in
-  one pass (the commit batches of the prover share the SRS points), so one
-  step adds B*W*G points with a single launch of kernel K4;
-* G from a sweep on the card (``group_count``): for n = 2^18 + 4, c = 8
-  (W = 32 windows, K = 129 buckets) it is 2048/B rounded to a power of
-  two, so each step adds 49,152 to 81,920 points (B = 1 to 10) in one K4
-  launch;
+  one pass (the commit batches of the prover share the SRS points);
+* the accumulation is kernel K4a (``bucket_accumulate``), one launch per
+  batch: a thread owns one bucket row (g, b*W + w) and walks the S steps
+  itself, so the per-step gathers and scatters stay inside the kernel;
 * the bucket tensor is laid out group-major (G, B*W, K) so every merge
-  step adds two contiguous halves;
-* digits, bucket addresses and point addresses of all steps are computed
-  in bulk before the loop; a step is two gathers, K4, one ``index_copy_``.
+  step adds two contiguous halves; the merges and the suffix scan are K4;
+* digits are computed in bulk before the accumulation, as int16 codes.
 
 Only the final affine point has to match the JAX MSM; the bucket layout is
 this module's own.
@@ -26,8 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _cuda
+from ..fields import cuda as fc
 from ..fields.limbs import LIMB_BITS, FieldSpec
-from . import ec
+from . import ec, ec_cuda
 
 DEFAULT_WINDOW = 8
 
@@ -36,41 +35,45 @@ def num_windows(fr_bits: int, c: int) -> int:
     return -(-fr_bits // c)
 
 
+def _window(padded: torch.Tensor, w: int, c: int) -> torch.Tensor:
+    """Window w (bits c*w .. c*w + c - 1) of int64 limbs padded by two zero
+    limbs, as int64 (n,)."""
+    li, of = divmod(c * w, LIMB_BITS)
+    width = padded.shape[1]
+    lo = padded[:, li] if li < width else torch.zeros_like(padded[:, 0])
+    hi = padded[:, li + 1] if li + 1 < width else torch.zeros_like(padded[:, 0])
+    return ((lo | (hi << LIMB_BITS)) >> of) & ((1 << c) - 1)
+
+
 def window_digits(scalars: torch.Tensor, c: int, fr_bits: int) -> torch.Tensor:
     """(n, L) canonical scalar limbs -> (W, n) int64 window digits."""
-    n, L = scalars.shape
     padded = torch.nn.functional.pad(scalars.to(torch.int64), (0, 2))
-    mask = (1 << c) - 1
-    digits = []
-    for w in range(num_windows(fr_bits, c)):
-        li, of = divmod(c * w, LIMB_BITS)
-        lo = padded[:, li] if li < L + 2 else torch.zeros_like(padded[:, 0])
-        hi = padded[:, li + 1] if li + 1 < L + 2 else torch.zeros_like(padded[:, 0])
-        word = lo | (hi << LIMB_BITS)
-        digits.append((word >> of) & mask)
-    return torch.stack(digits)
+    return torch.stack([_window(padded, w, c) for w in range(num_windows(fr_bits, c))])
 
 
-def signed_window_digits(scalars: torch.Tensor, c: int, fr_bits: int):
-    """Signed c-bit recoding: digit in [-2^(c-1), 2^(c-1)].
+def signed_digit_codes(scalars: torch.Tensor, c: int, fr_bits: int) -> torch.Tensor:
+    """Signed c-bit recoding as (W, n) int16 codes, W = num_windows(fr_bits
+    + 1, c).
 
-    Returns (magnitudes (W, n) in [0, half], negate-flags (W, n) bool) with
-    W = num_windows(fr_bits + 1, c); a raw digit d > half becomes
-    d - 2^c < 0 with a +1 carry into the next window (the top raw digit is
-    < half, so the final carry is always absorbed).
+    A raw digit d > 2^(c-1) becomes d - 2^c < 0 with a +1 carry into the
+    next window (the top raw digit is < 2^(c-1), so the final carry is
+    always absorbed).  A digit of magnitude m is coded m when it is
+    positive and ~m = -m - 1 when it is negative, so a negative zero (a raw
+    2^c - 1 plus a carry) keeps its sign: its bucket gets -P, as in the
+    reference.
     """
     half = 1 << (c - 1)
     full = 1 << c
-    raw = window_digits(scalars, c, fr_bits + 1)
-    mags, negs = [], []
-    carry = torch.zeros_like(raw[0])
-    for w in range(raw.shape[0]):
-        d = raw[w] + carry
+    padded = torch.nn.functional.pad(scalars.to(torch.int64), (0, 2))
+    W = num_windows(fr_bits + 1, c)
+    codes = torch.empty((W, scalars.shape[0]), dtype=torch.int16, device=scalars.device)
+    carry = torch.zeros_like(padded[:, 0])
+    for w in range(W):
+        d = _window(padded, w, c) + carry
         over = d > half
-        mags.append(torch.where(over, full - d, d))
-        negs.append(over)
+        codes[w] = torch.where(over, d - (full + 1), d)
         carry = over.to(torch.int64)
-    return torch.stack(mags), torch.stack(negs)
+    return codes
 
 
 def msm_window_size(n: int, c: int = 0) -> int:
@@ -79,63 +82,130 @@ def msm_window_size(n: int, c: int = 0) -> int:
     return 4 if n <= (1 << 12) else 8
 
 
-def group_count(n: int, c: int, batch: int) -> int:
-    """The bucket group count G for B = ``batch`` MSMs over n points: n/(B*K)
-    as a power of two in [1, 2048], so that the group merge (G*B*W*K point
-    adds) adds as many points as one scalar's accumulation (n*W).
+# Bucket rows (G * B * W threads of K4a) that the G rule aims at; from the
+# sweep of tools/sweep_msm_groups.py on an H100 (PERF.md): K4a and the
+# commit are fastest between 32,768 and 49,152 rows at every batch size
+# (a full residency is 50,688: 3 blocks of 128 threads on each of 132 SMs).
+ACC_ROWS = 40960
 
-    Measured on an H100 (``tools/sweep_msm_groups.py``, PERF.md): at n =
-    2^18 + 4, c = 8 this gives G = 2048, 1024 and 512 for B = 1, 2 and 3,
-    the best of G = 32..2048 for each, and 256 for B = 6 and 10, where the
-    commit time is flat from G = 128 to 1024 within the run-to-run spread.
+
+def group_count(n: int, c: int, batch: int, windows: int) -> int:
+    """The bucket group count G for B = ``batch`` MSMs of ``windows`` windows
+    over n points: a power of two, the smaller of
+    * ACC_ROWS / (B*W): enough K4a threads to keep the card busy, and few
+      enough that the per-row work (K bucket initialisations and
+      conversions in K4a, G*B*W*K adds in the group merge) stays small;
+    * n / (B*K): the group merge adds no more points than one scalar's
+      accumulation (n*W), which bounds G for small n.
+    At n = 2^18 + 4, c = 8 it gives G = 1024, 512, 512, 256 and 128 for
+    B = 1, 2, 3, 6 and 10 (measured best: 1024, 512, 352, 256, 128).
     """
     K = (1 << (c - 1)) + 1
-    g = round(np.log2(max(n / (batch * K), 1.0)))
-    return 1 << min(g, 11)
+    by_rows = np.log2(ACC_ROWS / (batch * windows))
+    by_merge = np.log2(max(n / (batch * K), 1.0))
+    return 1 << max(0, min(round(by_rows), round(by_merge)))
 
 
-def _accumulate(fq_spec, b3, points, scalars, fr_bits, c, G):
-    """Grouped serial bucket accumulation -> (G, B*W, K, 3, L).
-
-    points (n, 3, L); scalars (B, n, Lr).  Group g owns points g, g+G, ...
-    in step order; a negative digit adds the negated point.  Digit-0
-    buckets collect junk (including the identity padding) and are never
-    weighted.
-    """
-    B, n, Lr = scalars.shape
-    L = fq_spec.n_limbs
+def bucket_accumulate_plain(
+    spec: FieldSpec, b3: ec.B3, points: torch.Tensor, digits: torch.Tensor, G: int, c: int
+) -> torch.Tensor:
+    """The plain PyTorch version of K4a: the per-step loop, one gather of
+    the current buckets and of the (negated) points, one plain EC add and
+    one scatter per step."""
+    BW, n_pad = digits.shape
+    n = points.shape[0]
+    L = spec.n_limbs
+    K = (1 << (c - 1)) + 1
+    S = n_pad // G
     dev = points.device
-    K = (1 << (c - 1)) + 1
-    digits, negs = signed_window_digits(scalars.reshape(B * n, Lr), c, fr_bits)
-    W = digits.shape[0]
-    BW = B * W
-    S = -(-n // G)
-    n_pad = S * G
-    digits = digits.reshape(W, B, n).transpose(0, 1).reshape(BW, n)
-    negs = negs.reshape(W, B, n).transpose(0, 1).reshape(BW, n)
+    codes = digits.to(torch.int64)
+    negs = codes < 0
+    mags = torch.where(negs, ~codes, codes)
     if n_pad != n:
-        points = torch.cat([points, ec.identity(fq_spec, (n_pad - n,), device=dev)])
-        digits = torch.nn.functional.pad(digits, (0, n_pad - n))
-        negs = torch.nn.functional.pad(negs, (0, n_pad - n))
-    all_pts = torch.cat([points, ec.neg(fq_spec, points)]).contiguous()  # (2 n_pad, 3, L)
+        points = torch.cat([points, ec.identity(spec, (n_pad - n,), device=dev)])
+    zero = torch.zeros_like(points[:, 1])
+    neg_y = fc.binop_plain(spec, "sub", zero, points[:, 1])
+    neg_pts = torch.stack([points[:, 0], neg_y, points[:, 2]], dim=1)
+    all_pts = torch.cat([points, neg_pts]).contiguous()  # (2 n_pad, 3, L)
 
-    # step j, group g handles point j*G + g; bucket (g, bw, digit)
-    g_idx = torch.arange(G, device=dev)
-    base = (g_idx[:, None] * BW + torch.arange(BW, device=dev)[None, :]) * K  # (G, BW)
-    dig = digits.reshape(BW, S, G).permute(1, 2, 0)  # (S, G, BW)
+    # step j, group g handles point j*G + g; bucket (g, bw, |digit|)
+    base = (torch.arange(G, device=dev)[:, None] * BW + torch.arange(BW, device=dev)[None, :]) * K
+    mag = mags.reshape(BW, S, G).permute(1, 2, 0)  # (S, G, BW)
     neg = negs.reshape(BW, S, G).permute(1, 2, 0)
-    lin_all = (base[None] + dig).reshape(S, G * BW)
+    lin_all = (base[None] + mag).reshape(S, G * BW)
     pt_all = (
         torch.arange(n_pad, device=dev).reshape(S, G, 1) + neg.to(torch.int64) * n_pad
     ).reshape(S, G * BW)
 
-    buckets = ec.identity(fq_spec, (G * BW * K,), device=dev).contiguous()
+    buckets = ec.identity(spec, (G * BW * K,), device=dev).contiguous()
     for j in range(S):
         lin = lin_all[j]
         cur = buckets.index_select(0, lin)
         q = all_pts.index_select(0, pt_all[j])
-        buckets.index_copy_(0, lin, ec.add(fq_spec, b3, cur, q))
+        buckets.index_copy_(0, lin, ec_cuda.add_plain(spec, b3.limbs, cur, q))
     return buckets.reshape(G, BW, K, 3, L)
+
+
+def bucket_accumulate(
+    spec: FieldSpec, b3: ec.B3, points: torch.Tensor, digits: torch.Tensor, G: int, c: int
+) -> torch.Tensor:
+    """Grouped serial bucket accumulation -> (G, BW, K, 3, L) canonical
+    limbs, K = 2^(c-1) + 1.
+
+    points (n, 3, L) int32; digits (BW, n_pad) int16 codes of
+    ``signed_digit_codes`` (one row per scalar and window), zero-padded to
+    n_pad = S*G >= n.  Group g owns points g, g+G, ... in step order; a
+    negative digit adds the negated point; points past n are the identity.
+    Digit-0 buckets collect junk (including the identity padding) and are
+    never weighted.  Kernel K4a on the card, the plain version on the CPU.
+    """
+    L = spec.n_limbs
+    if points.dtype != torch.int32 or points.dim() != 3 or tuple(points.shape[1:]) != (3, L):
+        raise ValueError(f"points: expected (n, 3, {L}) int32, got {tuple(points.shape)} {points.dtype}")
+    if digits.dtype != torch.int16 or digits.dim() != 2:
+        raise ValueError(f"digits: expected (BW, n_pad) int16, got {tuple(digits.shape)} {digits.dtype}")
+    BW, n_pad = digits.shape
+    n = points.shape[0]
+    K = (1 << (c - 1)) + 1
+    if G < 1 or n_pad % G or n_pad < n or n_pad == 0:
+        raise ValueError(f"digits cover {n_pad} points: need a multiple of G={G} and >= {n}")
+    lo, hi = torch.aminmax(digits)
+    if hi.item() >= K or ~lo.item() >= K:
+        raise ValueError(f"digit codes out of range for K={K} buckets")
+    if points.device.type == "cpu" and digits.device.type == "cpu":
+        return bucket_accumulate_plain(spec, b3, points, digits, G, c)
+    if points.device != digits.device or points.device.type != "cuda":
+        raise ValueError(f"points on {points.device}, digits on {digits.device}")
+    if not 0 <= b3.value < 256:
+        raise ValueError("ec_bucket_accumulate needs 3b < 256")
+    points = points.contiguous()
+    digits = digits.contiguous()
+    out = torch.empty((G, BW, K, 3, L), dtype=torch.int32, device=points.device)
+    pm = torch.empty((n_pad, 3, L // 2), dtype=torch.int32, device=points.device)
+    fn = _cuda.lib("ec_bucket_accumulate").zk_ec_bucket_accumulate
+    err = fn(
+        L, points.data_ptr(), n, pm.data_ptr(), digits.data_ptr(), out.data_ptr(),
+        G, BW, K, n_pad // G, b3.value, _cuda.field_consts(spec), _cuda.stream_ptr(points),
+    )
+    _cuda.check(err, "ec_bucket_accumulate")
+    _cuda.launches["ec_bucket_accumulate"] += 1
+    return out
+
+
+def digit_rows(scalars: torch.Tensor, c: int, fr_bits: int, G: int) -> torch.Tensor:
+    """(B, n, Lr) scalars -> (B*W, n_pad) int16 digit codes, row b*W + w
+    for window w of scalar vector b, zero-padded to n_pad = ceil(n/G)*G."""
+    B, n, Lr = scalars.shape
+    codes = signed_digit_codes(scalars.reshape(B * n, Lr), c, fr_bits)  # (W, B*n)
+    W = codes.shape[0]
+    digits = codes.reshape(W, B, n).transpose(0, 1).reshape(B * W, n)
+    return torch.nn.functional.pad(digits, (0, -(-n // G) * G - n))
+
+
+def _accumulate(fq_spec, b3, points, scalars, fr_bits, c, G):
+    """Grouped serial bucket accumulation of B scalar vectors (B, n, Lr)
+    over points (n, 3, L) -> (G, B*W, K, 3, L)."""
+    return bucket_accumulate(fq_spec, b3, points, digit_rows(scalars, c, fr_bits, G), G, c)
 
 
 def _tree_reduce_points(fq_spec, b3, pts: torch.Tensor) -> torch.Tensor:
@@ -192,7 +262,7 @@ def msm_totals(
     sc = scalars if batched else scalars[None]
     n = points.shape[0]
     c = msm_window_size(n, c)
-    G = groups if groups > 0 else group_count(n, c, sc.shape[0])
+    G = groups if groups > 0 else group_count(n, c, sc.shape[0], num_windows(fr_bits + 1, c))
     buckets = _accumulate(fq_spec, b3, points, sc, fr_bits, c, G)
     totals = _reduce_buckets(fq_spec, b3, buckets)
     totals = totals.reshape(sc.shape[0], -1, 3, fq_spec.n_limbs)

@@ -3,8 +3,8 @@
 Usage (from the repository root, on a machine with a card):
 
     python -m zkt_plonk_tpu_torch.tools.sweep_msm_groups [--log-n 18]
-        [--batches 1,2,3,6,10] [--groups 32,64,...,2048] [--reps 3]
-        [--out sweep_msm_groups.json]
+        [--batches 1,2,3,6,10] [--groups 128,192,...,2816] [--reps 3]
+        [--max-rows 262144] [--out sweep_msm_groups.json]
 
 For each batch size B (the prover's commit batches at n = 2^18 are
 B = 1, 2, 3, 6 and 10 polynomials of n + 4 coefficients) and each G, it
@@ -12,9 +12,13 @@ commits B random polynomials to the SRS exactly as
 ``kzg.Committer.commit_many`` does (``msm.msm_totals`` with ``groups=G``,
 the copy of the window totals to the host, the host window fold), once to
 warm up and ``--reps`` times on the host clock after a
-``torch.cuda.synchronize()``, and records the median.  The card's name and
-power limit are printed beside the numbers and the whole record is written
-as JSON to ``--out``.
+``torch.cuda.synchronize()``, and records the median.  Beside it, the
+device time of the bucket accumulation alone (kernel K4a, CUDA events
+around one launch, median of ``--reps``), whose share of the commit the
+group merge and the suffix scan leave, and the commit's peak device
+memory above what was allocated before it.  The card's name and power limit are
+printed beside the numbers and the whole record is written as JSON to
+``--out``.
 """
 
 from __future__ import annotations
@@ -34,8 +38,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-n", type=int, default=18)
     ap.add_argument("--batches", default="1,2,3,6,10")
-    ap.add_argument("--groups", default="32,64,128,256,512,1024,2048")
+    ap.add_argument("--groups", default="128,192,256,352,512,704,1024,1408,2048,2816")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--max-rows", type=int, default=1 << 18,
+                    help="skip a G whose bucket rows G*B*W exceed this")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--out", default="sweep_msm_groups.json")
     args = ap.parse_args()
@@ -61,6 +67,19 @@ def main() -> int:
     batches = [int(b) for b in args.batches.split(",")]
     groups = [int(g) for g in args.groups.split(",")]
 
+    def accumulate_ms(scalars, G):
+        digits = msm.digit_rows(scalars, c, fr_bits, G)
+        times = []
+        for _ in range(args.reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            msm.bucket_accumulate(ctx.fq_spec, ck.b3, ck.powers, digits, G, c)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
     def commit(scalars, G):
         totals = msm.msm_totals(
             ctx.fq_spec, ck.b3, ck.powers, scalars, fr_bits, c=c, groups=G
@@ -75,21 +94,31 @@ def main() -> int:
         scalars = torch.from_numpy(limbs.astype(np.int32)).to(dev)
         want = None
         for G in groups:
+            if G * B * msm.num_windows(fr_bits + 1, c) > args.max_rows:
+                continue
             got = commit(scalars, G)  # warm-up
             if want is None:
                 want = got
             elif got != want:
                 raise AssertionError(f"B={B}: G={G} changed the commitments")
             times = []
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             for _ in range(args.reps):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 commit(scalars, G)
                 times.append(time.perf_counter() - t0)
+            peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+            acc = accumulate_ms(scalars, G)
             rows.append({"batch": B, "groups": G, "seconds": statistics.median(times),
-                         "all_seconds": times, "steps": -(-m // G)})
+                         "all_seconds": times, "steps": -(-m // G), "accumulate_ms": acc,
+                         "peak_gb": peak_gb})
             print(f"B={B:3d} G={G:5d} steps={-(-m // G):6d} "
-                  f"median {statistics.median(times) * 1e3:9.2f} ms  {times}", flush=True)
+                  f"median {statistics.median(times) * 1e3:9.2f} ms  accumulate {acc:8.2f} ms  "
+                  f"peak {peak_gb:6.3f} GB  "
+                  f"{times}", flush=True)
         del scalars
         torch.cuda.empty_cache()
     best = {}
