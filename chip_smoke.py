@@ -44,11 +44,18 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 INT32_MUL_PER_S = 132 * 64 * 1.98e9
 ELEM_BYTES = 64  # one field element: 16 limbs of int32
-# One 256-bit modular product with 32-bit multipliers: 8x8 word products
-# plus 8x8 + 8 for the reduction, each a mul.lo and a mul.hi.  The bounds
-# count the modular products that the function needs, not the ones a kernel
-# spends on its own bookkeeping (Montgomery conversions).
-MODMUL_OPS = 2 * (2 * 8 * 8 + 8)
+# 32-bit multiplies of 256-bit field arithmetic: a product is 8x8 word
+# products, each a mul.lo and a mul.hi; a Montgomery reduction is 8
+# quotient words (a mul.lo each) and 8x8 word products of them with p.  A
+# modular product is one of each; a complete EC add (RCB Algorithm 7, a = 0,
+# 3b by additions) needs 12 products and 9 reductions, since layer 3 sums
+# its products in pairs before one reduction (csrc/ec.cuh).  The bounds
+# count what the function needs, not the work a kernel spends on its own
+# bookkeeping (Montgomery conversions).
+PRODUCT_OPS = 2 * 8 * 8
+REDUCE_OPS = 8 + 2 * 8 * 8
+MODMUL_OPS = PRODUCT_OPS + REDUCE_OPS
+EC_ADD_OPS = 12 * PRODUCT_OPS + 9 * REDUCE_OPS
 
 GOLDEN_SHA256 = "504e1dbfaa28af3d1e9da112bbb4329374e06669416c39ec1fc8015df71d3cba"
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -398,9 +405,7 @@ def parity_ec_add(records, dev):
         a, b = got, P.flip(0).contiguous()
     k_ms = time_cuda(lambda: ec.add(spec, b3, P, Q))
     p_ms = time_cuda(lambda: ec_cuda.add_plain(spec, b3.limbs, P, Q), reps=3, warmup=1)
-    # RCB Algorithm 7 with a = 0: 12 modular products per add (3b is a small
-    # integer, applied by additions)
-    b_ms, b_by = bound_ms(3 * 3 * ELEM_BYTES * n, n * 12 * MODMUL_OPS)
+    b_ms, b_by = bound_ms(3 * 3 * ELEM_BYTES * n, n * EC_ADD_OPS)
     say("parity", kernel="ec_add_complete", shape="2^16 pairs", ms=k_ms, plain_ms=p_ms,
         bound_ms=b_ms, bound_by=b_by, max_abs_err=worst)
     records["ec_add_complete"] = dict(
@@ -412,12 +417,12 @@ def parity_ec_add(records, dev):
 
 
 def _acc_bound(n, BW, G, K):
-    """K4a's bound: every one of the BW * n_pad steps is one complete add
-    (12 modular products); bytes: the points and digits read once and the
-    bucket tensor written once."""
+    """K4a's bound: every one of the BW * n_pad steps is one complete add;
+    bytes: the points and digits read once and the bucket tensor written
+    once."""
     n_pad = -(-n // G) * G
     nbytes = 3 * ELEM_BYTES * n + 2 * BW * n_pad + 3 * ELEM_BYTES * G * BW * K
-    return bound_ms(nbytes, BW * n_pad * 12 * MODMUL_OPS)
+    return bound_ms(nbytes, BW * n_pad * EC_ADD_OPS)
 
 
 def _host_row(ck, pts_host, digits, g, bw, G, K):

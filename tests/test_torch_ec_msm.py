@@ -12,7 +12,9 @@ JAX package.
   n = 68, c = 4, G = 8 (identity padding to 72 points), on random scalars
   with 0, 1, r - 1 and a negative-zero digit, and on scalars that hit one
   bucket on consecutive steps; a batch of two against two single calls;
-  and the bucket sums at G = 16 against the reference's.
+  and the bucket sums at G = 16 against the reference's;
+* the wrappers' checks that need no card: digit codes out of range, and
+  the moduli the kernels' word arithmetic can take.
 """
 
 import os
@@ -28,9 +30,12 @@ from zkt_plonk_tpu.curves import curve_host as jch
 from zkt_plonk_tpu.curves import make_context as jax_make_context
 from zkt_plonk_tpu.ops import ec as jec
 from zkt_plonk_tpu.ops import msm as jmsm
+from zkt_plonk_tpu_torch import _cuda
 from zkt_plonk_tpu_torch.commitment import kzg
 from zkt_plonk_tpu_torch.curves import make_context
+from zkt_plonk_tpu_torch.fields import make_spec
 from zkt_plonk_tpu_torch.fields.limbs import ints_to_array
+from zkt_plonk_tpu_torch.fields.params import BLS12_381_FR, BN254_FQ, BN254_FR, FieldParams
 from zkt_plonk_tpu_torch.ops import ec, msm
 
 
@@ -210,3 +215,36 @@ def test_bucket_sums_with_more_padding_match_jax(srs, jax_buckets):
     want = torch.from_numpy(np.ascontiguousarray(jax_buckets["random"].transpose(1, 0, 2, 3, 4)))
     want_sum = msm._tree_reduce_points(spec, ck.b3, want)
     assert ec.to_affine_host(spec, got_sum) == ec.to_affine_host(spec, want_sum)
+
+
+def test_bucket_accumulate_rejects_digit_codes_out_of_range(srs):
+    ctx, ck = srs
+    K = (1 << (ACC_C - 1)) + 1
+    digits = torch.zeros((2, 72), dtype=torch.int16)
+    for bad in (K, ~K):
+        digits[1, 5] = bad
+        with pytest.raises(ValueError, match="out of range"):
+            msm.bucket_accumulate(ctx.fq_spec, ck.b3, ck.powers, digits, ACC_G, ACC_C)
+
+
+SECP256K1_FQ = FieldParams(name="secp256k1_fq", modulus=2**256 - 2**32 - 977, generator=3, two_adicity=1)
+
+
+@pytest.mark.parametrize(
+    "params, field_ok, ec_ok",
+    [(BN254_FQ, True, True), (BN254_FR, True, True), (BLS12_381_FR, True, False),
+     (SECP256K1_FQ, False, False)],
+    ids=lambda v: getattr(v, "name", None),
+)
+def test_kernel_constants_check_the_modulus(params, field_ok, ec_ok):
+    """The field kernels need 2p < R = 2^256, the EC kernels' lazy
+    reduction 4p < R; a modulus without that headroom is refused before
+    any launch."""
+    spec = make_spec(params)
+    for fn, ok in ((_cuda.field_consts, field_ok), (_cuda.ec_field_consts, ec_ok)):
+        if ok:
+            words = list(fn(spec))
+            assert sum(w << (32 * i) for i, w in enumerate(words[:8])) == params.modulus
+        else:
+            with pytest.raises(ValueError, match="need"):
+                fn(spec)

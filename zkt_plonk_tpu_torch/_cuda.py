@@ -161,10 +161,13 @@ def stream_ptr(t) -> int:
 @lru_cache(maxsize=None)
 def field_consts(spec):
     """ctypes uint32 array [p, R^2, R^4 (NW words each), -p^-1 mod 2^32,
-    2p, R mod p (NW words each)]."""
+    2p, R mod p (NW words each)].  The kernels' word arithmetic
+    (``csrc/field.cuh``) needs 2p < R = 2^(32*NW)."""
     nw = spec.n_limbs // 2
     p = spec.modulus
     R = 1 << (32 * nw)
+    if 2 * p >= R:
+        raise ValueError(f"the CUDA field kernels need 2p < 2^{32 * nw}; p has {p.bit_length()} bits")
 
     def words(v):
         return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
@@ -173,6 +176,18 @@ def field_consts(spec):
     vals = words(p) + words(R * R % p) + words(pow(R, 4, p)) + [pinv]
     vals += words(2 * p) + words(R % p)
     return (ctypes.c_uint * len(vals))(*vals)
+
+
+def ec_field_consts(spec):
+    """``field_consts`` for the EC kernels K4 and K4a, whose lazy reduction
+    (``csrc/ec.cuh``: values in [0, 2p) inside the formula) needs 4p < R."""
+    bits = 16 * spec.n_limbs
+    if 4 * spec.modulus >= 1 << bits:
+        raise ValueError(
+            f"the EC kernels' lazy reduction needs 4p < 2^{bits}; "
+            f"p has {spec.modulus.bit_length()} bits"
+        )
+    return field_consts(spec)
 
 
 def ll_array(vals):

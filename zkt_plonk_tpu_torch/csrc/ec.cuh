@@ -1,76 +1,25 @@
 // Complete projective point addition (Renes-Costello-Batina 2015,
 // Algorithm 7, a = 0) on 32-bit words, shared by K4 (ec_add_complete) and
-// K4a (ec_bucket_accumulate).
+// K4a (ec_bucket_accumulate), on the word arithmetic of field.cuh.
 //
-// Field arithmetic: NW = L/2 words per element, Montgomery products with
-// R = 2^(32*NW).  Word products are 64-bit multiply-adds in C, which ptxas
-// issues as IMAD.WIDE; additions, subtractions and the reductions' final
-// sums are carry chains in inline PTX (ptx.cuh).  Products written as PTX
-// mad.lo.cc / madc.hi.cc chains compiled to a multiply plus a carry add
-// per word and made both kernels take 11-17% longer (PERF.md).  The formula needs
-// 12 products: the six of layer 1 each take one Montgomery reduction; the
-// six of layer 3 pair up into X3, Y3, Z3 = a*b + c*d, so each pair takes
-// two wide products and ONE reduction (12 products, 9 reductions).
+// The formula needs 12 products: the six of layer 1 each take one
+// Montgomery reduction; the six of layer 3 pair up into X3, Y3, Z3 =
+// a*b + c*d, so each pair takes two wide products and ONE reduction (12
+// products, 9 reductions).
 //
-// Lazy reduction: the functions below need p < R/4 (BN254's Fq: p < 0.19 R).
-// Then a product of two values below 2p, reduced without the final
-// subtraction, is below (2p)^2/R + p < 2p, so inside the formula values
-// live in [0, 2p) and additions reduce by 2p; a layer-3 sum of two such
-// products is below 8p^2/R + p < 2.52p and two subtractions of p make it
-// canonical.  Inputs and outputs of rcb_add are canonical (< p).
+// Lazy reduction: the functions below need p < R/4 (BN254's Fq: p < 0.19 R;
+// the wrappers check it, _cuda.ec_field_consts).  Then a product of two
+// values below 2p, reduced without the final subtraction, is below
+// (2p)^2/R + p < 2p, so inside the formula values live in [0, 2p) and
+// additions reduce by 2p; a layer-3 sum of two such products is below
+// 8p^2/R + p < 2.52p and two subtractions of p make it canonical.  Inputs
+// and outputs of rcb_add are canonical (< p).
 #pragma once
 
 #include "field.cuh"
-#include "ptx.cuh"
 
 namespace zk {
 namespace ecw {
-
-// r = a + b; the caller guarantees a + b < 2^(32*NW)
-template <int NW>
-__device__ __forceinline__ void add_nr(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
-  r[0] = ptx::add_cc(a[0], b[0]);
-#pragma unroll
-  for (int j = 1; j < NW - 1; ++j) r[j] = ptx::addc_cc(a[j], b[j]);
-  r[NW - 1] = ptx::addc(a[NW - 1], b[NW - 1]);
-}
-
-// r = x - m if x >= m, else x
-template <int NW>
-__device__ __forceinline__ void csub(uint32_t r[NW], const uint32_t x[NW], const uint32_t m[NW]) {
-  uint32_t d[NW];
-  d[0] = ptx::sub_cc(x[0], m[0]);
-#pragma unroll
-  for (int j = 1; j < NW; ++j) d[j] = ptx::subc_cc(x[j], m[j]);
-  const uint32_t under = ptx::subc(0, 0);  // all ones if x < m
-#pragma unroll
-  for (int j = 0; j < NW; ++j) r[j] = under ? x[j] : d[j];
-}
-
-// r = a + b mod 2p for a, b < 2p
-template <int L>
-__device__ __forceinline__ void add2p(uint32_t r[L / 2], const uint32_t a[L / 2],
-                                      const uint32_t b[L / 2], const FieldConsts<L>& fc) {
-  uint32_t s[L / 2];
-  add_nr<L / 2>(s, a, b);
-  csub<L / 2>(r, s, fc.p2);
-}
-
-// r = a - b mod 2p for a, b < 2p
-template <int L>
-__device__ __forceinline__ void sub2p(uint32_t r[L / 2], const uint32_t a[L / 2],
-                                      const uint32_t b[L / 2], const FieldConsts<L>& fc) {
-  constexpr int NW = L / 2;
-  uint32_t d[NW];
-  d[0] = ptx::sub_cc(a[0], b[0]);
-#pragma unroll
-  for (int j = 1; j < NW; ++j) d[j] = ptx::subc_cc(a[j], b[j]);
-  const uint32_t under = ptx::subc(0, 0);
-  r[0] = ptx::add_cc(d[0], fc.p2[0] & under);
-#pragma unroll
-  for (int j = 1; j < NW - 1; ++j) r[j] = ptx::addc_cc(d[j], fc.p2[j] & under);
-  r[NW - 1] = ptx::addc(d[NW - 1], fc.p2[NW - 1] & under);
-}
 
 // r = 2p - a for a <= 2p (congruent to -a, in (0, 2p])
 template <int L>
@@ -109,78 +58,11 @@ __device__ __forceinline__ void mul_small2p(uint32_t r[L / 2], const uint32_t x[
 #pragma unroll
   for (int j = 0; j < NW; ++j) acc[j] = v ? x[j] : 0u;
   for (int bit = 30 - __clz(v > 0 ? v : 1); bit >= 0; --bit) {
-    add2p<L>(acc, acc, acc, fc);
-    if ((v >> bit) & 1) add2p<L>(acc, acc, x, fc);
+    add_mod<NW>(acc, acc, acc, fc.p2);
+    if ((v >> bit) & 1) add_mod<NW>(acc, acc, x, fc.p2);
   }
 #pragma unroll
   for (int j = 0; j < NW; ++j) r[j] = acc[j];
-}
-
-// T = a * b, 2*NW words, by rows: each word product is one 32x32+32+32
-// -> 64-bit multiply-add (IMAD.WIDE), which cannot overflow
-template <int NW>
-__device__ __forceinline__ void wide_mul(uint32_t T[2 * NW], const uint32_t a[NW],
-                                         const uint32_t b[NW]) {
-  // row 0 on its own: folding it into the loop below as "+ (i ? T[i + j] :
-  // 0)" made ptxas emit ~10% more instructions
-  uint32_t c = 0;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    const uint64_t s = (uint64_t)a[0] * b[j] + c;
-    T[j] = (uint32_t)s;
-    c = (uint32_t)(s >> 32);
-  }
-  T[NW] = c;
-#pragma unroll
-  for (int i = 1; i < NW; ++i) {
-    c = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      const uint64_t s = (uint64_t)a[i] * b[j] + T[i + j] + c;
-      T[i + j] = (uint32_t)s;
-      c = (uint32_t)(s >> 32);
-    }
-    T[i + NW] = c;
-  }
-}
-
-// r = T * R^-1 mod p without the final subtraction: r < T/R + p.  Needs
-// T/R + p < R (true for every T this file builds).
-template <int L>
-__device__ __forceinline__ void redc(uint32_t r[L / 2], const uint32_t T[L],
-                                     const FieldConsts<L>& fc) {
-  constexpr int NW = L / 2;
-  // u = T_lo + M*p, M chosen word by word so that u's low half is zero;
-  // after row i, u < R + p*2^(32(i+1)) fits words 0 .. i+NW
-  uint32_t u[2 * NW];
-#pragma unroll
-  for (int j = 0; j < NW; ++j) u[j] = T[j];
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    const uint32_t m = u[i] * fc.pinv;
-    uint32_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      const uint64_t s = (uint64_t)m * fc.p[j] + u[i + j] + c;
-      u[i + j] = (uint32_t)s;
-      c = (uint32_t)(s >> 32);
-    }
-    u[i + NW] = c;
-  }
-  // r = T_hi + u_hi = (T + M*p) / R
-  r[0] = ptx::add_cc(T[NW], u[NW]);
-#pragma unroll
-  for (int j = 1; j < NW - 1; ++j) r[j] = ptx::addc_cc(T[NW + j], u[NW + j]);
-  r[NW - 1] = ptx::addc(T[2 * NW - 1], u[2 * NW - 1]);
-}
-
-// r = a * b * R^-1 mod p, lazily: r < a*b/R + p (< 2p for a, b < 2p)
-template <int L>
-__device__ __forceinline__ void mont(uint32_t r[L / 2], const uint32_t a[L / 2],
-                                     const uint32_t b[L / 2], const FieldConsts<L>& fc) {
-  uint32_t T[L];
-  wide_mul<L / 2>(T, a, b);
-  redc<L>(r, T, fc);
 }
 
 // r = (a*b + c*d) * R^-1 mod p, canonical, for a, b, c, d <= 2p
@@ -225,19 +107,19 @@ __device__ __forceinline__ void rcb_add(uint32_t X3[L / 2], uint32_t Y3[L / 2], 
   add_nr<NW>(u, X1, Z1);
   add_nr<NW>(v, X2, Z2);
   mont<L>(t5, u, v, fc);  // (X1+Z1)(X2+Z2)
-  sub2p<L>(t3, t3, t0, fc);
-  sub2p<L>(t3, t3, t1, fc);  // X1Y2 + X2Y1
-  sub2p<L>(t4, t4, t1, fc);
-  sub2p<L>(t4, t4, t2, fc);  // Y1Z2 + Y2Z1
-  sub2p<L>(t5, t5, t0, fc);
-  sub2p<L>(t5, t5, t2, fc);  // X1Z2 + X2Z1
+  sub_mod<NW>(t3, t3, t0, fc.p2);
+  sub_mod<NW>(t3, t3, t1, fc.p2);  // X1Y2 + X2Y1
+  sub_mod<NW>(t4, t4, t1, fc.p2);
+  sub_mod<NW>(t4, t4, t2, fc.p2);  // Y1Z2 + Y2Z1
+  sub_mod<NW>(t5, t5, t0, fc.p2);
+  sub_mod<NW>(t5, t5, t2, fc.p2);  // X1Z2 + X2Z1
   // layer 2: the curve constant and the small multiples
   mul_small2p<L>(t2, t2, b3, fc);  // 3b Z1Z2
   mul_small2p<L>(t5, t5, b3, fc);  // 3b (X1Z2 + X2Z1)
-  add2p<L>(u, t0, t0, fc);
-  add2p<L>(t0, u, t0, fc);         // 3 X1X2
-  add2p<L>(u, t1, t2, fc);         // zs = Y1Y2 + 3b Z1Z2
-  sub2p<L>(v, t1, t2, fc);         // td = Y1Y2 - 3b Z1Z2
+  add_mod<NW>(u, t0, t0, fc.p2);
+  add_mod<NW>(t0, u, t0, fc.p2);   // 3 X1X2
+  add_mod<NW>(u, t1, t2, fc.p2);   // zs = Y1Y2 + 3b Z1Z2
+  sub_mod<NW>(v, t1, t2, fc.p2);   // td = Y1Y2 - 3b Z1Z2
   neg2p<L>(t1, t5, fc);            // -3b (X1Z2 + X2Z1)
   // layer 3: three sums of two products, one reduction each
   sop_canon<L>(X3, t3, v, t4, t1, fc);  // t3 td - t4 b3t5

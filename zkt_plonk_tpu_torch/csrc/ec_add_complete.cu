@@ -11,14 +11,14 @@
 // is the same canonical field element.
 //
 // What bounds it on the H100: integer multiplies.  One addition moves
-// 2 x 192 B in and 192 B out and needs 12 modular products (~3,300 32-bit
-// multiplies), ~6 multiplies per byte, far right of the ridge.  Design: one
-// thread per point pair with every intermediate in registers, the shared
-// rcb_add of ec.cuh (64-bit word products, PTX carry chains for the sums,
-// lazy reduction, layer 3 as three sums of products with one reduction
-// each), and no Montgomery conversion of the six inputs: rcb_add on
-// canonical values returns the coordinates times R^-3, and one product by
-// R^4 per coordinate cancels it (15 products, 12 reductions).  3b is a
+// 2 x 192 B in and 192 B out and needs 12 products and 9 reductions
+// (~2,760 32-bit multiplies), ~5 multiplies per byte, far right of the
+// ridge.  Design: one thread per point pair with every intermediate in
+// registers, the shared rcb_add of ec.cuh (the word arithmetic of
+// field.cuh, lazy reduction, layer 3 as three sums of products with one
+// reduction each), and no Montgomery conversion of the six inputs: rcb_add
+// on canonical values returns the coordinates times R^-3, and one product
+// by R^4 per coordinate cancels it (15 products, 12 reductions).  3b is a
 // small integer (9 on BN254) applied by double-and-add.
 #include "ec.cuh"
 
@@ -46,14 +46,11 @@ __global__ void __launch_bounds__(128)
     uint32_t X3[NW], Y3[NW], Z3[NW];
     ecw::rcb_add<L>(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2, b3, fc);
     // times R^4: below p^2/R + p < 2p, one subtraction makes it canonical
-    ecw::mont<L>(X1, X3, fc.r4, fc);
-    ecw::csub<NW>(X1, X1, fc.p);
+    mont_mul<L>(X1, X3, fc.r4, fc);
     store_elem<L>(out + i * 3 * L, X1);
-    ecw::mont<L>(Y1, Y3, fc.r4, fc);
-    ecw::csub<NW>(Y1, Y1, fc.p);
+    mont_mul<L>(Y1, Y3, fc.r4, fc);
     store_elem<L>(out + i * 3 * L + L, Y1);
-    ecw::mont<L>(Z1, Z3, fc.r4, fc);
-    ecw::csub<NW>(Z1, Z1, fc.p);
+    mont_mul<L>(Z1, Z3, fc.r4, fc);
     store_elem<L>(out + i * 3 * L + 2 * L, Z1);
   }
 }

@@ -12,8 +12,8 @@
 // in the reference's order, so the buckets are bit for bit the ones of the
 // per-step loop (msm.bucket_accumulate_plain).
 //
-// What bounds it on the H100: integer multiplies (12 modular products per
-// add, B*W*n_pad adds).  Design:
+// What bounds it on the H100: integer multiplies (12 products and 9
+// reductions per add, B*W*n_pad adds).  Design:
 // * the whole accumulation is Montgomery form: a first kernel converts the
 //   points once to packed 8-word Montgomery values (identity rows for the
 //   padding), the buckets start as the Montgomery identity, and the shared
@@ -58,8 +58,7 @@ __global__ void to_montgomery_kernel(const int32_t* __restrict__ pts, long long 
 #pragma unroll
       for (int j = 0; j < NW; ++j) x[j] = (j == 0 && i % 3 == 1) ? 1u : 0u;  // (0 : 1 : 0)
     }
-    ecw::mont<L>(y, x, fc.r2, fc);  // x*R, below p^2/R + p < 2p
-    ecw::csub<NW>(y, y, fc.p);
+    mont_mul<L>(y, x, fc.r2, fc);  // x*R
     ecw::store_words<NW>(pm + i * NW, y);
   }
 }
@@ -124,8 +123,8 @@ __global__ void __launch_bounds__(ACC_THREADS)
         T[j] = w[c][j];
         T[NW + j] = 0u;
       }
-      ecw::redc<L>(r, T, fc);  // x*R/R: below p + 1, and equal to p only for x = 0
-      ecw::csub<NW>(r, r, fc.p);
+      redc<L>(r, T, fc);  // x*R/R: below p + 1, and equal to p only for x = 0
+      csub<NW>(r, r, fc.p);
       store_elem<L>(reinterpret_cast<int32_t*>(b) + c * L, r);
     }
   }

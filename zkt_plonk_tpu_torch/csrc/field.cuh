@@ -3,8 +3,8 @@
 // Boundary layout (the JAX package's convention): a field element is L
 // canonical 16-bit limbs, little-endian, one per int32 word, so an element
 // occupies 4*L bytes and tensors are (..., L) int32.  Inside a kernel the
-// element is repacked into NW = L/2 32-bit words and multiplied with
-// Montgomery CIOS (R = 2^(32*NW)); add and sub work on canonical words.
+// element is repacked into NW = L/2 32-bit words and multiplied in
+// Montgomery form (R = 2^(32*NW)); add and sub work on canonical words.
 //
 // A kernel never leaves Montgomery form visible: a canonical product is
 // mont(mont(a, b), R^2) = a*b, and longer chains either convert once on
@@ -14,6 +14,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "ptx.cuh"
 
 namespace zk {
 
@@ -111,7 +113,16 @@ __device__ __forceinline__ void store_elem(int32_t* dst, const uint32_t w[L / 2]
 }
 
 // ---------------------------------------------------------------------------
-// word arithmetic
+// word arithmetic, the one set every kernel uses
+//
+// Sums, differences and the reductions' final sums are carry chains in
+// inline PTX (ptx.cuh).  Word products are 64-bit multiply-adds in C, which
+// ptxas issues as IMAD.WIDE; the same products written as PTX mad.lo.cc /
+// madc.hi.cc chains compiled to a multiply plus a carry add per word and
+// made the EC kernels take 11-17% longer (PERF.md).  A Montgomery product is
+// a full 2*NW-word product (wide_mul) and a separate reduction (redc), so a
+// sum of two products can share one reduction (ec.cuh).  Every field the
+// kernels take has 2p < R (checked by the wrappers, _cuda.field_consts).
 // ---------------------------------------------------------------------------
 
 template <int NW>
@@ -120,99 +131,140 @@ __device__ __forceinline__ void copy_w(uint32_t r[NW], const uint32_t a[NW]) {
   for (int j = 0; j < NW; ++j) r[j] = a[j];
 }
 
-// d = a - b, returns the borrow out (0/1)
+// r = a + b; the caller guarantees a + b < 2^(32*NW)
 template <int NW>
-__device__ __forceinline__ uint32_t sub_words(uint32_t d[NW], const uint32_t a[NW],
-                                              const uint32_t b[NW]) {
-  uint32_t br = 0;
+__device__ __forceinline__ void add_nr(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW]) {
+  r[0] = ptx::add_cc(a[0], b[0]);
 #pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    uint64_t s = (uint64_t)a[j] - (uint64_t)b[j] - (uint64_t)br;
-    d[j] = (uint32_t)s;
-    br = (uint32_t)(s >> 63);
-  }
-  return br;
+  for (int j = 1; j < NW - 1; ++j) r[j] = ptx::addc_cc(a[j], b[j]);
+  r[NW - 1] = ptx::addc(a[NW - 1], b[NW - 1]);
 }
 
-// d = a + b, returns the carry out (0/1)
+// r = x - m if x >= m, else x; r may alias x
 template <int NW>
-__device__ __forceinline__ uint32_t add_words(uint32_t d[NW], const uint32_t a[NW],
-                                              const uint32_t b[NW]) {
+__device__ __forceinline__ void csub(uint32_t r[NW], const uint32_t x[NW], const uint32_t m[NW]) {
+  uint32_t d[NW];
+  d[0] = ptx::sub_cc(x[0], m[0]);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) d[j] = ptx::subc_cc(x[j], m[j]);
+  const uint32_t under = ptx::subc(0, 0);  // all ones if x < m
+#pragma unroll
+  for (int j = 0; j < NW; ++j) r[j] = under ? x[j] : d[j];
+}
+
+// r = a + b mod m for a, b < m and 2m <= 2^(32*NW); r may alias a or b
+template <int NW>
+__device__ __forceinline__ void add_mod(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW],
+                                        const uint32_t m[NW]) {
+  uint32_t s[NW];
+  add_nr<NW>(s, a, b);
+  csub<NW>(r, s, m);
+}
+
+// r = a - b mod m for a, b < m; r may alias a or b
+template <int NW>
+__device__ __forceinline__ void sub_mod(uint32_t r[NW], const uint32_t a[NW], const uint32_t b[NW],
+                                        const uint32_t m[NW]) {
+  uint32_t d[NW];
+  d[0] = ptx::sub_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) d[j] = ptx::subc_cc(a[j], b[j]);
+  const uint32_t under = ptx::subc(0, 0);
+  r[0] = ptx::add_cc(d[0], m[0] & under);
+#pragma unroll
+  for (int j = 1; j < NW - 1; ++j) r[j] = ptx::addc_cc(d[j], m[j] & under);
+  r[NW - 1] = ptx::addc(d[NW - 1], m[NW - 1] & under);
+}
+
+// T = a * b, 2*NW words, by rows: each word product is one 32x32+32+32
+// -> 64-bit multiply-add (IMAD.WIDE), which cannot overflow
+template <int NW>
+__device__ __forceinline__ void wide_mul(uint32_t T[2 * NW], const uint32_t a[NW],
+                                         const uint32_t b[NW]) {
+  // row 0 on its own: folding it into the loop below as "+ (i ? T[i + j] :
+  // 0)" made ptxas emit ~10% more instructions
   uint32_t c = 0;
 #pragma unroll
   for (int j = 0; j < NW; ++j) {
-    uint64_t s = (uint64_t)a[j] + (uint64_t)b[j] + (uint64_t)c;
-    d[j] = (uint32_t)s;
+    const uint64_t s = (uint64_t)a[0] * b[j] + c;
+    T[j] = (uint32_t)s;
     c = (uint32_t)(s >> 32);
   }
-  return c;
+  T[NW] = c;
+#pragma unroll
+  for (int i = 1; i < NW; ++i) {
+    c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const uint64_t s = (uint64_t)a[i] * b[j] + T[i + j] + c;
+      T[i + j] = (uint32_t)s;
+      c = (uint32_t)(s >> 32);
+    }
+    T[i + NW] = c;
+  }
+}
+
+// r = T * R^-1 mod p without the final subtraction: r < T/R + p.  Needs
+// T/R + p < R.
+template <int L>
+__device__ __forceinline__ void redc(uint32_t r[L / 2], const uint32_t T[L],
+                                     const FieldConsts<L>& fc) {
+  constexpr int NW = L / 2;
+  // u = T_lo + M*p, M chosen word by word so that u's low half is zero;
+  // after row i, u < R + p*2^(32(i+1)) fits words 0 .. i+NW
+  uint32_t u[2 * NW];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) u[j] = T[j];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t m = u[i] * fc.pinv;
+    uint32_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const uint64_t s = (uint64_t)m * fc.p[j] + u[i + j] + c;
+      u[i + j] = (uint32_t)s;
+      c = (uint32_t)(s >> 32);
+    }
+    u[i + NW] = c;
+  }
+  // r = T_hi + u_hi = (T + M*p) / R
+  r[0] = ptx::add_cc(T[NW], u[NW]);
+#pragma unroll
+  for (int j = 1; j < NW - 1; ++j) r[j] = ptx::addc_cc(T[NW + j], u[NW + j]);
+  r[NW - 1] = ptx::addc(T[2 * NW - 1], u[2 * NW - 1]);
+}
+
+// r = a * b * R^-1 mod p, lazily: r < a*b/R + p (< 2p for a*b < pR);
+// r may alias a or b
+template <int L>
+__device__ __forceinline__ void mont(uint32_t r[L / 2], const uint32_t a[L / 2],
+                                     const uint32_t b[L / 2], const FieldConsts<L>& fc) {
+  uint32_t T[L];
+  wide_mul<L / 2>(T, a, b);
+  redc<L>(r, T, fc);
+}
+
+// r = a * b * R^-1 mod p, canonical, for a*b < pR (a, b canonical); r may
+// alias a or b
+template <int L>
+__device__ __forceinline__ void mont_mul(uint32_t r[L / 2], const uint32_t a[L / 2],
+                                         const uint32_t b[L / 2], const FieldConsts<L>& fc) {
+  mont<L>(r, a, b, fc);
+  csub<L / 2>(r, r, fc.p);
 }
 
 // r = a + b mod p (a, b canonical); r may alias a or b
 template <int L>
 __device__ __forceinline__ void fadd(uint32_t r[L / 2], const uint32_t a[L / 2],
                                      const uint32_t b[L / 2], const FieldConsts<L>& fc) {
-  constexpr int NW = L / 2;
-  uint32_t s[NW], d[NW];
-  uint32_t c = add_words<NW>(s, a, b);
-  uint32_t br = sub_words<NW>(d, s, fc.p);
-  bool ge = c || !br;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) r[j] = ge ? d[j] : s[j];
+  add_mod<L / 2>(r, a, b, fc.p);
 }
 
 // r = a - b mod p (a, b canonical); 0 - 0 = 0
 template <int L>
 __device__ __forceinline__ void fsub(uint32_t r[L / 2], const uint32_t a[L / 2],
                                      const uint32_t b[L / 2], const FieldConsts<L>& fc) {
-  constexpr int NW = L / 2;
-  uint32_t d[NW], e[NW];
-  uint32_t br = sub_words<NW>(d, a, b);
-  add_words<NW>(e, d, fc.p);
-#pragma unroll
-  for (int j = 0; j < NW; ++j) r[j] = br ? e[j] : d[j];
-}
-
-// r = a * b * R^-1 mod p (CIOS), for a, b < p; r may alias a or b
-template <int L>
-__device__ __forceinline__ void mont_mul(uint32_t r[L / 2], const uint32_t a[L / 2],
-                                         const uint32_t b[L / 2], const FieldConsts<L>& fc) {
-  constexpr int NW = L / 2;
-  uint32_t t[NW + 2];
-#pragma unroll
-  for (int j = 0; j < NW + 2; ++j) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    uint64_t carry = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      uint64_t s = (uint64_t)a[i] * b[j] + t[j] + carry;
-      t[j] = (uint32_t)s;
-      carry = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[NW] + carry;
-    t[NW] = (uint32_t)s;
-    t[NW + 1] = (uint32_t)(s >> 32);
-
-    uint32_t m = t[0] * fc.pinv;
-    s = (uint64_t)m * fc.p[0] + t[0];
-    carry = s >> 32;
-#pragma unroll
-    for (int j = 1; j < NW; ++j) {
-      s = (uint64_t)m * fc.p[j] + t[j] + carry;
-      t[j - 1] = (uint32_t)s;
-      carry = s >> 32;
-    }
-    s = (uint64_t)t[NW] + carry;
-    t[NW - 1] = (uint32_t)s;
-    t[NW] = t[NW + 1] + (uint32_t)(s >> 32);
-  }
-  // t < 2p: one conditional subtraction
-  uint32_t d[NW];
-  uint32_t br = sub_words<NW>(d, t, fc.p);
-  bool ge = (t[NW] != 0) || !br;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) r[j] = ge ? d[j] : t[j];
+  sub_mod<L / 2>(r, a, b, fc.p);
 }
 
 // canonical a*b mod p

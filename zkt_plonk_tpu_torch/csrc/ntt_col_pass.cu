@@ -8,9 +8,9 @@
 // transform, jnp.take of plan.bitrevs) happens here, on the load.
 //
 // What bounds it on the H100: integer multiplies.  A pass reads and writes
-// each element once (128 B) and does (log2 F)/2 Montgomery products per
-// element (F = 128: 3.5 x 136 32-bit multiplies), ~4 multiplies per byte.
-// Design: a block owns TILE = 1024 elements (1024/F columns); it loads
+// each element once (128 B) and does up to (log2 F)/2 Montgomery products
+// per element (F = 128: at most 3.5 x 264 32-bit multiplies), up to ~7
+// multiplies per byte.  Design: a block owns TILE = 1024 elements (1024/F columns); it loads
 // them once into shared memory as 32-bit words (32 KB), converts the F
 // stage twiddles to Montgomery form once (so mont(v, w*R) = v*w stays
 // canonical), runs all log2 F butterfly stages with a barrier between

@@ -96,7 +96,7 @@ def add(spec: FieldSpec, b3: torch.Tensor, b3_int: int, p: torch.Tensor, q: torc
         _cuda.ll_array([m[0] for m in meta]),
         _cuda.ll_array([m[1] for m in meta]),
         _cuda.ll_array([m[2] for m in meta]),
-        b3_int, _cuda.field_consts(spec), _cuda.stream_ptr(p),
+        b3_int, _cuda.ec_field_consts(spec), _cuda.stream_ptr(p),
     )
     _cuda.check(err, "ec_add_complete")
     _cuda.launches["ec_add_complete"] += 1

@@ -157,7 +157,10 @@ def bucket_accumulate(
     n_pad = S*G >= n.  Group g owns points g, g+G, ... in step order; a
     negative digit adds the negated point; points past n are the identity.
     Digit-0 buckets collect junk (including the identity padding) and are
-    never weighted.  Kernel K4a on the card, the plain version on the CPU.
+    never weighted.  Codes must lie in [-K, K), as ``digit_rows`` makes
+    them; only the CPU path checks, since a check on the card would make
+    the host wait for it on every batch.  Kernel K4a on the card, the plain
+    version on the CPU.
     """
     L = spec.n_limbs
     if points.dtype != torch.int32 or points.dim() != 3 or tuple(points.shape[1:]) != (3, L):
@@ -169,10 +172,10 @@ def bucket_accumulate(
     K = (1 << (c - 1)) + 1
     if G < 1 or n_pad % G or n_pad < n or n_pad == 0:
         raise ValueError(f"digits cover {n_pad} points: need a multiple of G={G} and >= {n}")
-    lo, hi = torch.aminmax(digits)
-    if hi.item() >= K or ~lo.item() >= K:
-        raise ValueError(f"digit codes out of range for K={K} buckets")
     if points.device.type == "cpu" and digits.device.type == "cpu":
+        lo, hi = torch.aminmax(digits)
+        if hi.item() >= K or ~lo.item() >= K:
+            raise ValueError(f"digit codes out of range for K={K} buckets")
         return bucket_accumulate_plain(spec, b3, points, digits, G, c)
     if points.device != digits.device or points.device.type != "cuda":
         raise ValueError(f"points on {points.device}, digits on {digits.device}")
@@ -185,7 +188,7 @@ def bucket_accumulate(
     fn = _cuda.lib("ec_bucket_accumulate").zk_ec_bucket_accumulate
     err = fn(
         L, points.data_ptr(), n, pm.data_ptr(), digits.data_ptr(), out.data_ptr(),
-        G, BW, K, n_pad // G, b3.value, _cuda.field_consts(spec), _cuda.stream_ptr(points),
+        G, BW, K, n_pad // G, b3.value, _cuda.ec_field_consts(spec), _cuda.stream_ptr(points),
     )
     _cuda.check(err, "ec_bucket_accumulate")
     _cuda.launches["ec_bucket_accumulate"] += 1
