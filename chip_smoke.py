@@ -12,7 +12,12 @@ Phases, one line each:
                 card tensors at the main path's shapes (and against Python
                 ints on a sample), with its device time per call (CUDA
                 events around calls queued back to back), the plain
-                version's time and the bound; K4a (the MSM's bucket
+                version's time and the bound; K2 at one element (the
+                prover's shape) and 2^12, for e = p - 2 and e = 5; K3's
+                fused passes at every pass of the (10, 2^18) iNTT and the
+                (36, 2^18) forward transform, then whole transforms at the
+                prover's shapes (36, 4 and 10 polynomials of 2^18), each
+                D launches of K3 and nothing else; K4a (the MSM's bucket
                 accumulation) at n = 2^18 + 4 with B = 3 scalar vectors,
                 including 0, 1, r - 1, negative-zero digits and runs of
                 one digit, and its time at the prover's batches B = 1, 2,
@@ -20,8 +25,9 @@ Phases, one line each:
   4. golden   — the TinyCircuit proof on the card: 802 bytes, fixed sha256;
   5. withdraw — the withdraw circuit at HEIGHT=48, NOTES=3, TABLE=1024
                 (n = 2^18): SRS setup, compile, cold and warm prove, verify,
-                a tampered public input that must raise, and the launch
-                count of every kernel over this main path;
+                a tampered public input that must raise, the launch
+                count of every kernel over this main path, and the launches
+                inside each of its NTTs (D of K3, nothing else);
 then one JSON line of kernel records, nvidia-smi's line, and the result line.
 """
 
@@ -202,6 +208,9 @@ def parity_fp_binop(records, dev):
     )
 
 
+SQUARE_OPS = 2 * 36 + REDUCE_OPS  # a squaring: 36 distinct word products
+
+
 def parity_fp_pow_chain(records, dev):
     from zkt_plonk_tpu_torch.fields import BN254_FR, make_spec
     from zkt_plonk_tpu_torch.fields import cuda as fc
@@ -209,30 +218,50 @@ def parity_fp_pow_chain(records, dev):
 
     spec = make_spec(BN254_FR)
     p = spec.modulus
-    n = 1 << 12
-    A = random_limbs(spec, n, np.random.default_rng(5))
+    A = random_limbs(spec, 1 << 12, np.random.default_rng(5))
     A[:7] = 0
     A[7, :] = 0
     A[7, 0] = 1
-    a = torch.from_numpy(A).to(dev)
-    e = p - 2
-    got = fc.pow_chain(spec, a, e)
-    plain = fc.pow_chain_plain(spec, a, e)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, plain)
-    sample = list(range(300))
-    want = [pow(x, e, p) for x in array_to_ints(A[sample])]
-    if err != 0 or array_to_ints(got[sample].cpu().numpy()) != want:
-        raise AssertionError(f"fp_pow_chain disagrees (max_abs_err {err})")
-    k_ms = time_cuda(lambda: fc.pow_chain(spec, a, e))
-    p_ms = time_cuda(lambda: fc.pow_chain_plain(spec, a, e), reps=1, warmup=0)
-    chain = e.bit_length() - 1 + bin(e).count("1") - 1  # squarings + multiplies
-    b_ms, b_by = bound_ms(2 * ELEM_BYTES * n, n * chain * MODMUL_OPS)
-    say("parity", kernel="fp_pow_chain", shape="2^12xFr,e=p-2", ms=k_ms, plain_ms=p_ms,
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    A[8] = np.asarray(spec.modulus_limbs, dtype=np.int32)
+    A[8, 0] -= 1  # p - 1
+    worst = 0
+    timed = {}
+    for e in (p - 2, 5):
+        sched = fc.window_schedule(e)
+        squarings = sum(s for s, _ in sched.steps) + sched.tail + (sched.ntab > 1)
+        multiplies = sched.products() - squarings
+        ops = squarings * SQUARE_OPS + multiplies * MODMUL_OPS
+        for n in (1, 1 << 12):
+            # the prover's one element: a random one (row 9)
+            rows = A[9:10] if n == 1 else A
+            a = torch.from_numpy(rows).to(dev)
+            got = fc.pow_chain(spec, a, e)
+            plain = fc.pow_chain_plain(spec, a, e)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, plain)
+            worst = max(worst, err)
+            sample = list(range(min(n, 300)))
+            want = [pow(x, e, p) for x in array_to_ints(rows[sample])]
+            if err != 0 or array_to_ints(got[sample].cpu().numpy()) != want:
+                raise AssertionError(f"fp_pow_chain e={e} n={n} disagrees (max_abs_err {err})")
+            k_ms = time_cuda(lambda: fc.pow_chain(spec, a, e))
+            p_ms = time_cuda(lambda: fc.pow_chain_plain(spec, a, e), reps=1, warmup=0)
+            b_ms, b_by = bound_ms(2 * ELEM_BYTES * n, n * ops)
+            label = "p-2" if e == p - 2 else str(e)
+            say("parity", kernel="fp_pow_chain", shape=f"{n}xFr,e={label}", window=sched.window,
+                products=sched.products(), squarings=squarings, ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+            timed[(e, n)] = (k_ms, p_ms, b_ms, b_by)
+    # one element: the time per product of the chain's latency, the slope
+    # between the two exponents
+    big, small = fc.window_schedule(p - 2).products(), fc.window_schedule(5).products()
+    say("time", kernel="fp_pow_chain", shape="1xFr", us_per_product=(
+        (timed[(p - 2, 1)][0] - timed[(5, 1)][0]) * 1e3 / (big - small)))
+    # the record: the prover's shape, one element, e = p - 2
+    k_ms, p_ms, b_ms, b_by = timed[(p - 2, 1)]
     records["fp_pow_chain"] = dict(
         name="fp_pow_chain", route="cuda", source="zkt_plonk_tpu_torch/csrc/fp_pow_chain.cu",
-        replaces="zkt_plonk_tpu/fields/pallas.py:412", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        replaces="zkt_plonk_tpu/fields/pallas.py:412", max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
 
@@ -244,7 +273,36 @@ def _horner(coeffs, x, p):
     return acc
 
 
+def transform_bound(dom, name, nb):
+    """Bound of one whole transform, whatever runs it (``tools/time_ntt.py``
+    counts the work from the host plan)."""
+    from zkt_plonk_tpu_torch.ops import ntt_mr
+    from zkt_plonk_tpu_torch.tools.time_ntt import transform_work
+
+    host = ntt_mr.build_plan(dom, inverse="ifft" in name, coset="coset" in name)
+    nbytes, products = transform_work(host, nb)
+    return bound_ms(nbytes, products * MODMUL_OPS)
+
+
+def pass_bound(plan, d, nb):
+    """Bound of fused pass d: its input and output in their layouts (limbs
+    at the caller's boundary, packed words between passes) and its tables
+    read once; its non-trivial stage twiddle products and table products."""
+    F = plan.Fs[d]
+    n = plan.n
+    f = F.bit_length() - 1
+    words = ELEM_BYTES // 2
+    nbytes = nb * n * ((ELEM_BYTES if d == 0 else words) + (ELEM_BYTES if d == len(plan.Fs) - 1 else words))
+    products = nb * (n // F) * sum(F // 2 - F // (2 << s) for s in range(1, f))
+    for tbl in ((plan.tin if d == 0 else None), plan.tout[d]):
+        if tbl is not None:
+            nbytes += tbl.numel() * 4
+            products += nb * n
+    return bound_ms(nbytes, products * MODMUL_OPS)
+
+
 def parity_ntt_col_pass(records, dev):
+    from zkt_plonk_tpu_torch import _cuda
     from zkt_plonk_tpu_torch.fields import BN254_FR
     from zkt_plonk_tpu_torch.fields.limbs import array_to_ints
     from zkt_plonk_tpu_torch.ops import ntt, ntt_mr
@@ -291,55 +349,70 @@ def parity_ntt_col_pass(records, dev):
             if not torch.equal(batched[3], ntt.ifft(spec, plan, Y[3])):
                 raise AssertionError("batched iNTT row differs from the single iNTT")
         say("parity", kernel="ntt_col_pass", transforms=f"2^{logn}", ok=True)
+        del x, outs
 
-    # the kernel against its plain version at each pass of a 2^18 (10, n) iNTT
+    # each fused pass against its plain version on the same card tensors, at
+    # every pass of the (10, 2^18) iNTT of setup and the (36, 2^18) forward
+    # transform of the quotient round; pass d+1 takes the kernel's own lazy
+    # output (values below 2p), the plain version its canonical form
     dom = make_domain(BN254_FR, 1 << 18)
     spec = dom.spec
-    plan = dom.plan(dev).inv
-    timing = None
-    for d, F in enumerate(plan.Fs):
-        M = 10 * ((1 << 18) // F)
-        x = torch.from_numpy(random_limbs(spec, F * M, gen).reshape(F, M, 16)).to(dev)
-        got = ntt_mr.col_pass(spec, x, plan.stage_tws[d])
-        plain = ntt_mr.col_pass_plain(spec, x, plan.stage_tws[d])
-        torch.cuda.synchronize()
-        err = max_abs_err(got, plain)
-        worst = max(worst, err)
-        if err != 0:
-            raise AssertionError(f"ntt_col_pass F={F} disagrees (max_abs_err {err})")
-        k_ms = time_cuda(lambda: ntt_mr.col_pass(spec, x, plan.stage_tws[d]))
-        p_ms = time_cuda(lambda: ntt_mr.col_pass_plain(spec, x, plan.stage_tws[d]), reps=3, warmup=1)
-        # stage s >= 1 multiplies F/2 - F/2^(s+1) of its F/2 butterflies
-        # by a twiddle other than 1
-        logF = F.bit_length() - 1
-        products = sum(F // 2 - F // (2 << s) for s in range(1, logF))
-        ops = M * products * MODMUL_OPS
-        b_ms, b_by = bound_ms(2 * ELEM_BYTES * F * M, ops)
-        say("parity", kernel="ntt_col_pass", shape=f"F={F},M={M}", ms=k_ms, plain_ms=p_ms,
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-        if timing is None:
-            timing = (k_ms, p_ms, b_ms, b_by)
-    # K1 on the pass's inter-pass table, as ops/ntt_mr.py:_mul_table calls it
-    # (the counterpart of zkt_plonk_tpu/ops/ntt_mr.py:461 _mul3d): x (F, 10 M)
-    # times a (rows, M) table broadcast over the 10 polynomials
-    from zkt_plonk_tpu_torch.fields import cuda as fc
+    n = dom.size
+    for name, nb in (("ifft", 10), ("fft", 36)):
+        plan = dom.plan(dev).inv if name == "ifft" else dom.plan(dev).fwd
+        x = torch.from_numpy(random_limbs(spec, nb * n, gen).reshape(nb, n, 16)).to(dev)
+        y = x
+        for d, F in enumerate(plan.Fs):
+            last = d == len(plan.Fs) - 1
+            got = ntt_mr.fused_pass(spec, plan, d, y, nb)
+            plain_in = y if d == 0 else ntt_mr.words_canonical(spec, y)
+            plain = ntt_mr.fused_pass_plain(spec, plan, d, plain_in, nb)
+            torch.cuda.synchronize()
+            err = max_abs_err(got if last else ntt_mr.words_canonical(spec, got), plain)
+            worst = max(worst, err)
+            if err != 0:
+                raise AssertionError(f"ntt_col_pass {name} nb={nb} pass {d} disagrees (max_abs_err {err})")
+            k_ms = time_cuda(lambda: ntt_mr.fused_pass(spec, plan, d, y, nb))
+            fields = dict(ms=k_ms)
+            if nb == 10:
+                fields["plain_ms"] = time_cuda(
+                    lambda: ntt_mr.fused_pass_plain(spec, plan, d, plain_in, nb), reps=1, warmup=0)
+            b_ms, b_by = pass_bound(plan, d, nb)
+            say("parity", kernel="ntt_col_pass", shape=f"({nb},2^18) {name} pass {d} F={F}",
+                **fields, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+            del plain, plain_in
+            y = got
+        del x, y, got
+        torch.cuda.empty_cache()
 
-    d = next(i for i, t in enumerate(plan.post) if t is not None)
-    tbl = plan.post[d]
-    F, M = plan.Fs[d], (1 << 18) // plan.Fs[d]
-    x = torch.from_numpy(random_limbs(spec, 10 * F * M, gen).reshape(F, 10 * M, 16)).to(dev)
-    got = ntt_mr._mul_table(spec, x, tbl, 10)
-    plain = fc.binop_plain(spec, "mul", x.reshape(F, 10, M, 16), tbl.reshape(tbl.shape[0], 1, M, 16))
-    torch.cuda.synchronize()
-    err = max_abs_err(got, plain.reshape(F, 10 * M, 16))
-    if err != 0:
-        raise AssertionError(f"fp_binop on the NTT table disagrees (max_abs_err {err})")
-    m_ms = time_cuda(lambda: ntt_mr._mul_table(spec, x, tbl, 10))
-    mp_ms = time_cuda(lambda: fc.binop_plain(spec, "mul", x.reshape(F, 10, M, 16),
-                                             tbl.reshape(tbl.shape[0], 1, M, 16)), reps=3, warmup=1)
-    b_ms, b_by = bound_ms((2 * x.numel() + tbl.numel()) * 4, F * 10 * M * MODMUL_OPS)
-    say("parity", kernel="fp_binop.table", shape=f"F={F},10x{M},table={tuple(tbl.shape[:2])}",
-        ms=m_ms, plain_ms=mp_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    # whole transforms at the prover's shapes: D launches of K3, nothing else
+    timing = None
+    for name, nb in (("fft", 36), ("ifft", 4), ("ifft", 10)):
+        plans = dom.plan(dev)
+        plan = plans.inv if name == "ifft" else plans.fwd
+        x = torch.from_numpy(random_limbs(spec, nb * n, gen).reshape(nb, n, 16)).to(dev)
+        fn = getattr(ntt, name)
+        _cuda.reset_launches()
+        fn(spec, plans, x)
+        launched = {k: v for k, v in _cuda.launches.items() if v}
+        if launched != {"ntt_col_pass": len(plan.Fs)}:
+            raise AssertionError(f"({nb}, 2^18) {name} launched {launched}")
+        k_ms = time_cuda(lambda: fn(spec, plans, x))
+        b_ms, b_by = transform_bound(dom, name, nb)
+        fields = {}
+        if nb == 10:
+            def plain_chain():
+                y = x
+                for d in range(len(plan.Fs)):
+                    y = ntt_mr.fused_pass_plain(spec, plan, d, y, nb)
+                return y
+
+            fields["plain_ms"] = time_cuda(plain_chain, reps=1, warmup=0)
+            timing = (k_ms, fields["plain_ms"], b_ms, b_by)
+        say("time", kernel="ntt_col_pass", shape=f"({nb},2^18) {name} transform", ms=k_ms, **fields,
+            bound_ms=b_ms, bound_by=b_by, share=round(b_ms / k_ms, 3), launches=launched)
+        del x
+    torch.cuda.empty_cache()
 
     k_ms, p_ms, b_ms, b_by = timing
     records["ntt_col_pass"] = dict(
@@ -579,6 +652,25 @@ def withdraw(dev, height=48, notes=3, table_size=1024):
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    # every transform of the main path: its launches, by kernel
+    from collections import Counter
+
+    from zkt_plonk_tpu_torch.ops import ntt_mr
+
+    per_transform = Counter()
+    bad = []
+    inner = ntt_mr.transform
+
+    def counted(spec, plan, x):
+        before = dict(_cuda.launches)
+        out = inner(spec, plan, x)
+        delta = {k: v - before[k] for k, v in _cuda.launches.items() if v != before[k]}
+        per_transform[f"D={len(plan.Fs)}:" + ",".join(f"{k}={v}" for k, v in delta.items())] += 1
+        if delta != {"ntt_col_pass": len(plan.Fs)}:
+            bad.append(delta)
+        return out
+
+    ntt_mr.transform = counted
     _cuda.reset_launches()
     t0 = time.perf_counter()
     ck, cvk = kzg.setup(inst.ctx, max_degree=4 * bound, tau=987654321, device=dev)
@@ -597,6 +689,7 @@ def withdraw(dev, height=48, notes=3, table_size=1024):
     inst.verify(compiled, proof, pub_inputs)
     verify_s = clock(t0)
     launches = dict(_cuda.launches)
+    ntt_mr.transform = inner
     try:
         inst.verify(compiled, proof, [(pub_inputs[0] + 1) % inst.p] + pub_inputs[1:])
     except (VerificationError, AssertionError):
@@ -608,6 +701,9 @@ def withdraw(dev, height=48, notes=3, table_size=1024):
         prove_cold_s=cold_s, prove_warm_s=warm_s, verify_s=verify_s, tamper=tamper,
         peak_device_gb=round(peak_gb, 2))
     say("launches", **launches)
+    say("ntt", transforms=sum(per_transform.values()), launches_per_transform=dict(per_transform))
+    if bad:
+        raise AssertionError(f"transforms that launched more than their D passes of K3: {bad}")
     return launches
 
 

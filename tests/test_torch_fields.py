@@ -19,6 +19,7 @@ from zkt_plonk_tpu.fields import BN254_FQ, BN254_FR
 from zkt_plonk_tpu.fields import device as jfd
 from zkt_plonk_tpu.fields import make_spec as jax_make_spec
 from zkt_plonk_tpu.fields.limbs import array_to_ints, ints_to_array
+from zkt_plonk_tpu_torch.fields import cuda as tfc
 from zkt_plonk_tpu_torch.fields import device as tfd
 from zkt_plonk_tpu_torch.fields import make_spec
 
@@ -101,6 +102,47 @@ def test_pow_const_and_inv_match_python(params):
         got = array_to_ints(tfd.pow_const(spec, X, e).numpy())
         assert got == [pow(x, e, p) for x in xs], e
     assert array_to_ints(tfd.inv(spec, X).numpy()) == [pow(x, p - 2, p) for x in xs]
+
+
+PR = BN254_FR.modulus
+POW_EXPONENTS = {
+    "1": 1, "2": 2, "3": 3, "5": 5, "(p-1)/2": (PR - 1) // 2, "p-2": PR - 2,
+    # dense low bits (a window of several bits pays), but the top window is
+    # cut short by the zeros below the leading 1
+    "partial-top": (1 << 100) | 0x9E3779B97F4A7C15F39CC061,
+}
+
+
+@pytest.mark.parametrize("name", list(POW_EXPONENTS))
+def test_pow_chain_windowed_matches_python(name):
+    """K2's plain version (the sliding-window chain the kernel runs) against
+    pow(a, e, p) for a in {0, 1, p-1, random}, on Fr and Fq; and its
+    schedule replayed on the exponent."""
+    e = POW_EXPONENTS[name]
+    sched = tfc.window_schedule(e)
+    acc = 2 * sched.first + 1
+    for squarings, idx in sched.steps:
+        assert idx < sched.ntab
+        acc = (acc << squarings) + 2 * idx + 1
+    assert acc << sched.tail == e
+    binary = e.bit_length() - 1 + bin(e).count("1") - 1
+    assert sched.products() <= binary
+    if name == "partial-top":
+        assert sched.window > 1 and 2 * sched.first + 1 < 1 << (sched.window - 1)
+    for params in FIELDS:
+        p = params.modulus
+        xs = [0, 1, p - 1] + [random.Random(e % 1000).randrange(p) for _ in range(3)]
+        got = tfc.pow_chain_plain(make_spec(params), _t(xs), e)
+        assert got.dtype == torch.int32
+        assert array_to_ints(got.numpy()) == [pow(x, e, p) for x in xs]
+
+
+def test_pow_chain_schedule_is_shorter_than_binary():
+    """For the Fermat exponent the window chain needs ~70 fewer products
+    than square-and-multiply (309 against 379 for BN254 Fr)."""
+    sched = tfc.window_schedule(PR - 2)
+    assert sched.window in (4, 5)
+    assert sched.products() <= 379 - 60
 
 
 @pytest.fixture(scope="module")

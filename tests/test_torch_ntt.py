@@ -6,7 +6,11 @@ driver, plain CPU version of kernel K3) against the JAX package.
 * fft / ifft / coset_fft / coset_ifft against jitted ``zkt_plonk_tpu.ops.ntt``
   at 2^6 (one pass) and 2^9 (two passes), and against the host-int NTTs of
   ``zkt_plonk_tpu.ops.ntt_host`` at 2^10;
-* coset4_fft / coset4_ifft against jitted JAX at 2^6 with n+4 coefficients.
+* coset4_fft / coset4_ifft against jitted JAX at 2^6 with n+4 coefficients;
+* the fused pass (``ntt_mr.fused_pass_plain``, K3's plain version) against
+  the chain it replaced (``col_pass_plain``, the table multiply, the
+  permute) at every pass of a 3-pass plan at 2^15 with two polynomials,
+  in all four directions, and the 2^15 transforms against the host ints.
 
 Exact equality of limbs throughout.
 """
@@ -26,6 +30,7 @@ from zkt_plonk_tpu.ops import ntt as jntt
 from zkt_plonk_tpu.ops import ntt_host as jntt_host
 from zkt_plonk_tpu.ops import ntt_mr as jntt_mr
 from zkt_plonk_tpu.utils.domain import make_domain as jax_make_domain
+from zkt_plonk_tpu_torch.fields import cuda as fc
 from zkt_plonk_tpu_torch.ops import ntt, ntt_mr
 from zkt_plonk_tpu_torch.utils.domain import make_domain
 
@@ -131,13 +136,109 @@ def test_coset4_matches_jax():
 
 
 def test_col_pass_plain_is_one_radix_pass():
-    """K3's plain version at F = 8: rows gathered in bit-reversed order, then
+    """K3's radix-F pass at F = 8: rows gathered in bit-reversed order, then
     an 8-point DFT down each column (stage twiddles of the plan)."""
     dom = make_domain(BN254_FR, 8)
-    plan = dom.plan("cpu").fwd
+    tws = ntt_mr.build_plan(dom, inverse=False, coset=False).stage_tws[0][:, :, 0]
     x = _rand((8, 3), seed=8)
-    got = ntt_mr.col_pass(dom.spec, torch.from_numpy(x.astype(np.int32)), plan.stage_tws[0])
+    got = ntt_mr.col_pass_plain(
+        dom.spec, torch.from_numpy(x.astype(np.int32)), torch.from_numpy(tws.astype(np.int32))
+    )
     cols = [array_to_ints(x[:, m]) for m in range(3)]
     w = dom.group_gen
     want = [[sum(c[t] * pow(w, t * k, P) for t in range(8)) % P for k in range(8)] for c in cols]
     assert [array_to_ints(got[:, m].numpy()) for m in range(3)] == want
+
+
+def test_words_round_trip():
+    """Packed words (the card's intermediates, values below 2p) back to
+    canonical limbs, and the plan's Montgomery words back to the table."""
+    dom = make_domain(BN254_FR, 8)
+    vals = [0, 1, P - 1, P, P + 1, 2 * P - 1, random.Random(3).randrange(P)]
+    words = ntt_mr.limbs_to_words(torch.from_numpy(ints_to_array(vals, 16).astype(np.int32)))
+    assert words.shape == (len(vals), 8) and words.dtype == torch.int32
+    assert array_to_ints(ntt_mr.words_canonical(dom.spec, words).numpy()) == [v % P for v in vals]
+    host = ntt_mr.build_plan(dom, inverse=False, coset=False)
+    mont = ntt_mr._from_mont(dom.spec, dom.plan("cpu").fwd.stage_tws[0])
+    np.testing.assert_array_equal(mont.numpy(), host.stage_tws[0][:, :, 0].astype(np.int64))
+
+
+N15 = 1 << 15
+
+
+def _old_table(spec, tbls, M):
+    """The product of a pass's compact tables as canonical (rows, M, L) limbs."""
+    full = None
+    for t in tbls:
+        arr = torch.from_numpy(t.expand(M).astype(np.int64))
+        full = arr if full is None else fc.mul64(spec, full, arr)
+    return full
+
+
+@pytest.mark.parametrize("inverse,coset", [(False, False), (True, False), (False, True), (True, True)])
+def test_fused_pass_plain_matches_old_chain(inverse, coset):
+    """Each fused pass equals col_pass_plain, then the table multiply, then
+    the permute (the chain the transform ran before K3 took them in), at 2^15 = (7, 4, 4)
+    with two polynomials; the coset prologue/epilogue and the 1/n of the
+    pass D-2 table included."""
+    nb, L = 2, 16
+    dom = make_domain(BN254_FR, N15)
+    spec = dom.spec
+    host = ntt_mr.build_plan(dom, inverse=inverse, coset=coset)
+    assert host.factors == (7, 4, 4)
+    plan = getattr(dom.plan("cpu"), {(False, False): "fwd", (True, False): "inv",
+                                     (False, True): "coset_fwd", (True, True): "coset_inv"}[inverse, coset])
+    if inverse:
+        n_inv = ntt_mr._from_mont(spec, plan.tout[1][:1, :1])
+        assert array_to_ints(n_inv.reshape(1, L).numpy()) == [dom.size_inv]
+    X = torch.from_numpy(_rand((nb, N15), seed=15).astype(np.int32))
+    Fs = plan.Fs
+    x = X.reshape(nb, Fs[0], N15 // Fs[0], L).permute(1, 0, 2, 3).reshape(Fs[0], -1, L)
+    new_in = X
+    Q, P_ = N15, 1
+    for d, F in enumerate(Fs):
+        Q //= F
+        M = N15 // F
+        if d == 0 and host.pro:
+            rev = torch.from_numpy(host.bitrevs[0].astype(np.int64))
+            pro = _old_table(spec, host.pro, M).index_select(0, rev)
+            x = fc.mul64(spec, x.reshape(F, nb, M, L).to(torch.int64), pro[:, None]).reshape(F, nb * M, L)
+        tws = torch.from_numpy(host.stage_tws[d][:, :, 0].astype(np.int32))
+        x = ntt_mr.col_pass_plain(spec, x.to(torch.int32), tws)
+        tables = host.post[d] if d < len(Fs) - 1 else host.epi
+        if tables:
+            tbl = _old_table(spec, tables, M)
+            x = fc.mul64(spec, x.reshape(F, nb, M, L).to(torch.int64), tbl[:, None]).reshape(F, nb * M, L)
+        if d < len(Fs) - 1:
+            Fn = Fs[d + 1]
+            x = x.reshape(F, nb, Fn, Q // Fn, P_, L).permute(2, 1, 3, 0, 4, 5).reshape(Fn, -1, L)
+        else:
+            x = x.reshape(F, nb, M, L).permute(1, 0, 2, 3).reshape(nb, N15, L)
+        P_ *= F
+        got = ntt_mr.fused_pass_plain(spec, plan, d, new_in, nb)
+        np.testing.assert_array_equal(got.numpy(), x.to(torch.int32).numpy(), err_msg=f"pass {d}")
+        new_in = got
+
+
+@pytest.fixture(scope="module")
+def host_vals_2_15():
+    return array_to_ints(_rand((N15,), seed=16))
+
+
+@pytest.mark.parametrize("direction", DIRECTIONS)
+def test_transforms_match_host_ints_2_15(host_vals_2_15, direction):
+    vals = host_vals_2_15
+    dom = make_domain(BN254_FR, N15)
+    w, g = dom.group_gen, dom.coset_gen
+    x = torch.from_numpy(ints_to_array(vals, 16).astype(np.int32))
+    got = array_to_ints(getattr(ntt, direction)(dom.spec, dom.plan("cpu"), x).numpy())
+    if direction == "fft":
+        want = jntt_host.fft_ints(vals, w, P)
+    elif direction == "ifft":
+        want = jntt_host.ifft_ints(vals, w, P)
+    elif direction == "coset_fft":
+        want = jntt_host.coset_fft_ints(vals, g, w, P)
+    else:
+        gi = pow(g, -1, P)
+        want = [c * pow(gi, i, P) % P for i, c in enumerate(jntt_host.ifft_ints(vals, w, P))]
+    assert got == want

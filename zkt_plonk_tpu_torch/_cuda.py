@@ -129,10 +129,12 @@ def _declare(name: str, cdll: ctypes.CDLL) -> ctypes.CDLL:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     LLP = ctypes.POINTER(ctypes.c_longlong)
     UP = ctypes.POINTER(ctypes.c_uint)
+    U16P = ctypes.POINTER(ctypes.c_ushort)
+    U8P = ctypes.POINTER(ctypes.c_ubyte)
     sigs = {
         "fp_binop": ("zk_fp_binop", [I, I, P, P, P, LL, I, LLP, LLP, LLP, UP, P]),
-        "fp_pow_chain": ("zk_fp_pow_chain", [I, P, P, LL, UP, I, UP, P]),
-        "ntt_col_pass": ("zk_ntt_col_pass", [I, P, P, I, LL, P, UP, P]),
+        "fp_pow_chain": ("zk_fp_pow_chain", [I, P, P, LL, I, I, I, I, U16P, U8P, UP, P]),
+        "ntt_col_pass": ("zk_ntt_fused_pass", [I, P, P, I, LL, LL, I, I, I, I, P, P, P, UP, P]),
         "ec_add_complete": (
             "zk_ec_add_complete", [I, P, P, P, LL, I, LLP, LLP, LLP, I, UP, P]
         ),

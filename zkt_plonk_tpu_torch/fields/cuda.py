@@ -19,6 +19,7 @@ a sequential pass over the limbs, vectorized over the elements.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -120,16 +121,84 @@ def binop_plain(spec: FieldSpec, op: str, a: torch.Tensor, b: torch.Tensor) -> t
     return fn(spec, a.to(torch.int64), b.to(torch.int64)).to(torch.int32)
 
 
-def pow_chain_plain(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
-    """The plain PyTorch version of K2: MSB-first square and multiply."""
+POW_MAX_WINDOW = 5  # csrc/fp_pow_chain.cu holds odd powers up to x^31
+
+
+class PowSchedule(NamedTuple):
+    """A left-to-right sliding-window chain for a^e: the table holds the odd
+    powers a^(2i+1), i < ``ntab``; the chain starts at table entry
+    ``first`` and, for each (squarings, index) of ``steps``, squares that
+    many times and multiplies by the entry; then squares ``tail`` times."""
+
+    window: int
+    ntab: int
+    first: int
+    steps: Tuple[Tuple[int, int], ...]
+    tail: int
+
+    def products(self) -> int:
+        """Modular products of the chain, the table's included."""
+        table = self.ntab if self.ntab > 1 else 0  # a^2, then ntab - 1 multiplies
+        return table + sum(s + 1 for s, _ in self.steps) + self.tail
+
+
+def _sliding_window(exponent: int, window: int) -> PowSchedule:
+    bits = bin(exponent)[2:]
+    n = len(bits)
+
+    def digit(i):
+        # the window starting at the 1 at bit string index i: up to ``window``
+        # bits, ending in a 1
+        j = min(i + window, n)
+        while bits[j - 1] == "0":
+            j -= 1
+        return int(bits[i:j], 2), j
+
+    d, i = digit(0)
+    first, top = d >> 1, d
+    steps = []
+    while True:
+        z = i
+        while z < n and bits[z] == "0":
+            z += 1
+        if z == n:
+            tail = n - i
+            break
+        d, j = digit(z)
+        steps.append((j - i, d >> 1))
+        top = max(top, d)
+        i = j
+    return PowSchedule(window, top // 2 + 1, first, tuple(steps), tail)
+
+
+@lru_cache(maxsize=None)
+def window_schedule(exponent: int) -> PowSchedule:
+    """The sliding-window chain of fewest products for windows of 1 to 5
+    bits (the smaller window on a tie)."""
     if exponent < 1:
         raise ValueError("pow_chain needs an exponent >= 1")
+    return min(
+        (_sliding_window(exponent, w) for w in range(1, POW_MAX_WINDOW + 1)),
+        key=lambda s: s.products(),
+    )
+
+
+def pow_chain_plain(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """The plain PyTorch version of K2: the same sliding-window chain."""
+    sched = window_schedule(exponent)
     x = a.to(torch.int64)
-    acc = x
-    for bit in bin(exponent)[3:]:
+    tab = [x]
+    if sched.ntab > 1:
+        x2 = mul64(spec, x, x)
+        for _ in range(sched.ntab - 1):
+            tab.append(mul64(spec, tab[-1], x2))
+    acc = tab[sched.first]
+    for squarings, idx in sched.steps:
+        for _ in range(squarings):
+            acc = mul64(spec, acc, acc)
+        acc = mul64(spec, acc, tab[idx])
+    for _ in range(sched.tail):
         acc = mul64(spec, acc, acc)
-        if bit == "1":
-            acc = mul64(spec, acc, x)
     return acc.to(torch.int32)
 
 
@@ -198,19 +267,21 @@ def pow_chain(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
         return pow_chain_plain(spec, a, exponent)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    nbits = exponent.bit_length()
-    if nbits > 512:
+    if exponent.bit_length() > 512:
         raise ValueError("exponent above 512 bits")
+    sched = window_schedule(exponent)
     a = a.contiguous()
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
-    words = [(exponent >> (32 * k)) & 0xFFFFFFFF for k in range(16)]
+    nsteps = len(sched.steps)
     fn = _cuda.lib("fp_pow_chain").zk_fp_pow_chain
     err = fn(
         spec.n_limbs, a.data_ptr(), out.data_ptr(), a.numel() // spec.n_limbs,
-        (_cuda.ctypes.c_uint * 16)(*words), nbits,
-        _cuda.field_consts(spec), _cuda.stream_ptr(a),
+        sched.ntab, sched.first, nsteps, sched.tail,
+        (_cuda.ctypes.c_ushort * max(1, nsteps))(*[s for s, _ in sched.steps]),
+        (_cuda.ctypes.c_ubyte * max(1, nsteps))(*[d for _, d in sched.steps]),
+        _cuda.ec_field_consts(spec), _cuda.stream_ptr(a),
     )
     _cuda.check(err, "fp_pow_chain")
     _cuda.launches["fp_pow_chain"] += 1

@@ -9,10 +9,12 @@ w^(P_d t c) and transposes the next factor to the row axis.  ``factorize``,
 unchanged as numpy, extended to the single-pass case (n <= 2^8, where 1/n
 is an epilogue table instead of part of an inter-pass table).
 
-The port keeps elements in the last axis, ``(F, M, L)``, and expands the
-compact tables into full ``(rows, M, L)`` device tables once per plan
-(``DevicePlan``).  Each pass is one launch of kernel K3 (``ntt_col_pass``,
-the row gather included) and one K1 launch per table multiply.
+``DevicePlan`` expands the compact tables once per plan into full
+``(F, M)`` tables and keeps them, with the stage twiddles, as Montgomery
+words (t*R mod p, 8 x 32 bits).  Each pass is ONE launch of kernel K3
+(``ntt_col_pass``): the row gather, the prologue, the DIT stages, the
+inter-pass table or epilogue and the transpose to the next pass's layout
+all happen inside it, so a transform is D launches and nothing else.
 """
 
 from __future__ import annotations
@@ -275,50 +277,91 @@ def build_plan(dom, *, inverse: bool, coset: bool) -> MrPlan:
 
 
 # ---------------------------------------------------------------------------
-# device plan: full tables, built once
+# device plan: stage twiddles and full tables as Montgomery words, built once
 # ---------------------------------------------------------------------------
 
 
+def limbs_to_words(limbs: torch.Tensor) -> torch.Tensor:
+    """(..., L) 16-bit limbs -> (..., L/2) packed 32-bit words as int32."""
+    lo = limbs[..., 0::2].to(torch.int64)
+    hi = limbs[..., 1::2].to(torch.int64)
+    w = lo | (hi << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def words_to_limbs(words: torch.Tensor) -> torch.Tensor:
+    """(..., NW) packed words (int32) -> (..., 2 NW) int64 16-bit limbs."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], -1).reshape(*w.shape[:-1], 2 * w.shape[-1])
+
+
+def words_canonical(spec: FieldSpec, words: torch.Tensor) -> torch.Tensor:
+    """Packed words of values below 2p (the card's intermediates) ->
+    canonical int32 limbs."""
+    limbs = words_to_limbs(words)
+    return fc.add64(spec, limbs, torch.zeros_like(limbs)).to(torch.int32)
+
+
+def _mont_words(spec: FieldSpec, limbs: torch.Tensor) -> torch.Tensor:
+    """Canonical limbs of t -> packed words of t*R mod p (R = 2^(16 L))."""
+    r = fd.constant(spec, 1 << (16 * spec.n_limbs), device=limbs.device)
+    return limbs_to_words(fd.mul(spec, limbs, r)).contiguous()
+
+
+def _from_mont(spec: FieldSpec, words: torch.Tensor) -> torch.Tensor:
+    """Packed words of t*R mod p -> canonical int64 limbs of t."""
+    p = spec.modulus
+    r_inv = fd.constant(spec, pow(1 << (16 * spec.n_limbs), -1, p), device=words.device)
+    return fc.mul64(spec, words_to_limbs(words), r_inv.to(torch.int64))
+
+
 class DevicePlan:
-    """One direction of one size on one device: per-pass stage twiddles
-    (F, L) and full (rows, M, L) table products (None where absent)."""
+    """One direction of one size on one device, in the form K3 reads: per
+    pass the stage twiddles (F, NW) and, where the pass has one, its input
+    table ``tin`` (pass 1's prologue, rows in natural order) and output table
+    ``tout`` (the inter-pass twiddles, the epilogue on the last pass), full
+    (F, M, NW); all as Montgomery words t*R mod p."""
 
     def __init__(self, spec: FieldSpec, plan: MrPlan, device: torch.device):
         self.n = plan.n
         self.factors = plan.factors
         Fs = [1 << f for f in plan.factors]
         self.Fs = Fs
+        D = len(Fs)
         self.stage_tws = [
-            torch.from_numpy(tw[:, :, 0].astype(np.int32)).to(device) for tw in plan.stage_tws
+            _mont_words(spec, torch.from_numpy(tw[:, :, 0].astype(np.int32)).to(device))
+            for tw in plan.stage_tws
         ]
-        self.post = [
-            _table_product(spec, ts, plan.n // Fs[d], device) for d, ts in enumerate(plan.post)
-        ]
-        pro = _table_product(spec, plan.pro, plan.n // Fs[0], device)
-        if pro is not None and pro.shape[0] > 1:
-            # the kernel gathers rows on load, so the prologue applies before
-            # it in natural row order (bit reversal is an involution)
+        tables = [plan.post[d] if d < D - 1 else plan.epi for d in range(D)]
+        self.tout = [_table_words(spec, ts, Fs[d], plan.n // Fs[d], device) for d, ts in enumerate(tables)]
+        pro = _table_words(spec, plan.pro, Fs[0], plan.n // Fs[0], device)
+        if pro is not None:
+            # build_plan lists the prologue's rows in bit-reversed order (the
+            # JAX transform gathers before it multiplies); K3 multiplies at the
+            # row it loads, so natural order (bit reversal is an involution)
             pro = pro.index_select(0, torch.from_numpy(plan.bitrevs[0].astype(np.int64)).to(device))
-        self.pro = pro
-        self.epi = _table_product(spec, plan.epi, plan.n // Fs[-1], device)
+        self.tin = pro
 
 
-def _table_product(spec, tbls: List[Tbl], M: int, device) -> Optional[torch.Tensor]:
+def _table_words(spec, tbls: List[Tbl], F: int, M: int, device) -> Optional[torch.Tensor]:
     full = None
     for t in tbls:
         arr = torch.from_numpy(t.expand(M).astype(np.int32)).to(device)
         full = arr if full is None else fd.mul(spec, full, arr)
-    return None if full is None else full.contiguous()
+    if full is None:
+        return None
+    return _mont_words(spec, full.expand(F, M, spec.n_limbs))
 
 
 # ---------------------------------------------------------------------------
-# K3: one radix-F column pass
+# K3: one fused radix-F pass
 # ---------------------------------------------------------------------------
 
 
 def col_pass_plain(spec: FieldSpec, x: torch.Tensor, stage_tws: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of K3: rows gathered in bit-reversed order,
-    then all log2 F DIT stages along axis 0 of (F, M, L), int64 limb math."""
+    """The radix-F column pass on canonical limbs: rows gathered in
+    bit-reversed order, then all log2 F DIT stages along axis 0 of
+    (F, M, L) with canonical stage twiddles (F, L), int64 limb math."""
     F, M, L = x.shape
     logF = F.bit_length() - 1
     rev = torch.from_numpy(_bitrev_perm(F).astype(np.int64)).to(x.device)
@@ -335,30 +378,80 @@ def col_pass_plain(spec: FieldSpec, x: torch.Tensor, stage_tws: torch.Tensor) ->
     return y.to(torch.int32)
 
 
-def col_pass(spec: FieldSpec, x: torch.Tensor, stage_tws: torch.Tensor) -> torch.Tensor:
-    """One radix-F pass over x (F, M, L): kernel K3 on the card, the plain
-    version on the CPU."""
-    if x.dtype != torch.int32 or stage_tws.dtype != torch.int32:
-        raise TypeError("col_pass expects torch.int32 limbs")
-    F, M, L = x.shape
-    if L != spec.n_limbs or tuple(stage_tws.shape) != (F, L) or F & (F - 1):
-        raise ValueError(f"bad col_pass shapes {tuple(x.shape)} / {tuple(stage_tws.shape)}")
-    if x.device.type == "cpu" and stage_tws.device.type == "cpu":
-        return col_pass_plain(spec, x, stage_tws)
-    if x.device.type != "cuda" or stage_tws.device != x.device:
-        raise ValueError(f"col_pass operands on {x.device} and {stage_tws.device}")
-    logF = F.bit_length() - 1
-    if logF > 8:
-        raise ValueError("col_pass supports F <= 256")
-    x = x.contiguous()
-    tw = stage_tws.contiguous()
-    out = torch.empty_like(x)
-    if M == 0:
+def _pass_dims(plan: DevicePlan, d: int):
+    """(F, M, P, Qn) of pass d: F rows, M = n/F columns per polynomial,
+    P = the product of the earlier factors, Qn = M / (P F_{d+1}) (0 on the
+    last pass)."""
+    Fs = plan.Fs
+    F = Fs[d]
+    M = plan.n // F
+    P = 1
+    for f in Fs[:d]:
+        P *= f
+    Qn = M // (P * Fs[d + 1]) if d < len(Fs) - 1 else 0
+    return F, M, P, Qn
+
+
+def fused_pass_plain(spec: FieldSpec, plan: DevicePlan, d: int, x: torch.Tensor, nb: int) -> torch.Tensor:
+    """The plain PyTorch version of K3, on canonical limbs: gather and DIT
+    stages (``col_pass_plain``), prologue, inter-pass table or epilogue,
+    relayout.  x: pass 1 the caller's (nb, n, L); a later pass the previous
+    pass's output (F, nb M, L).  Returns pass d+1's input
+    (F_{d+1}, nb n / F_{d+1}, L), or the caller's (nb, n, L) after the last
+    pass."""
+    L = spec.n_limbs
+    F, M, P, Qn = _pass_dims(plan, d)
+    if d == 0:
+        y = x.reshape(nb, F, M, L).transpose(0, 1).to(torch.int64)
+        if plan.tin is not None:
+            y = fc.mul64(spec, y, _from_mont(spec, plan.tin)[:, None])
+    else:
+        y = x.reshape(F, nb, M, L)
+    y = col_pass_plain(spec, y.reshape(F, nb * M, L), _from_mont(spec, plan.stage_tws[d]))
+    y = y.reshape(F, nb, M, L)
+    if plan.tout[d] is not None:
+        y = fc.mul64(spec, y.to(torch.int64), _from_mont(spec, plan.tout[d])[:, None])
+    if d < len(plan.Fs) - 1:
+        Fn = plan.Fs[d + 1]
+        y = y.reshape(F, nb, Fn, Qn, P, L).permute(2, 1, 3, 0, 4, 5)
+        return y.reshape(Fn, nb * (plan.n // Fn), L).to(torch.int32)
+    return y.transpose(0, 1).reshape(nb, plan.n, L).to(torch.int32)
+
+
+def fused_pass(spec: FieldSpec, plan: DevicePlan, d: int, x: torch.Tensor, nb: int) -> torch.Tensor:
+    """Pass d of the transform of nb polynomials: kernel K3 on the card, the
+    plain version on the CPU.  In and out as ``fused_pass_plain``, except
+    that on the card the intermediate (F_{d+1}, nb n / F_{d+1}, L/2) holds
+    packed words of values below 2p (canonical domain, not Montgomery)."""
+    if x.dtype != torch.int32:
+        raise TypeError("fused_pass expects torch.int32")
+    if x.device.type == "cpu" and plan.stage_tws[d].device.type == "cpu":
+        return fused_pass_plain(spec, plan, d, x, nb)
+    if x.device.type != "cuda" or plan.stage_tws[d].device != x.device:
+        raise ValueError(f"fused_pass operands on {x.device} and {plan.stage_tws[d].device}")
+    L = spec.n_limbs
+    NW = L // 2
+    F, M, P, Qn = _pass_dims(plan, d)
+    last = d == len(plan.Fs) - 1
+    want = (nb, plan.n, L) if d == 0 else (F, nb * M, NW)
+    if tuple(x.shape) != want or not x.is_contiguous():
+        raise ValueError(f"fused_pass {d}: expected contiguous {want}, got {tuple(x.shape)}")
+    if F > 256:
+        raise ValueError("fused_pass supports F <= 256")
+    shape = (nb, plan.n, L) if last else (plan.Fs[d + 1], nb * (plan.n // plan.Fs[d + 1]), NW)
+    out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    if nb == 0:
         return out
-    fn = _cuda.lib("ntt_col_pass").zk_ntt_col_pass
+    tin = plan.tin if d == 0 else None
+    tout = plan.tout[d]
+    fn = _cuda.lib("ntt_col_pass").zk_ntt_fused_pass
     err = fn(
-        L, x.data_ptr(), out.data_ptr(), logF, M, tw.data_ptr(),
-        _cuda.field_consts(spec), _cuda.stream_ptr(x),
+        L, x.data_ptr(), out.data_ptr(), F.bit_length() - 1, nb, M,
+        P.bit_length() - 1, max(Qn, 1).bit_length() - 1, int(d == 0), int(last),
+        plan.stage_tws[d].data_ptr(),
+        None if tin is None else tin.data_ptr(),
+        None if tout is None else tout.data_ptr(),
+        _cuda.ec_field_consts(spec), _cuda.stream_ptr(x),
     )
     _cuda.check(err, "ntt_col_pass")
     _cuda.launches["ntt_col_pass"] += 1
@@ -370,51 +463,26 @@ def col_pass(spec: FieldSpec, x: torch.Tensor, stage_tws: torch.Tensor) -> torch
 # ---------------------------------------------------------------------------
 
 
-def _mul_table(spec, x, tbl, nb):
-    """x (F, nb*M, L) times a (rows, M, L) table broadcast over batches."""
-    F, W, L = x.shape
-    rows, M, _ = tbl.shape
-    y = fd.mul(spec, x.reshape(F, nb, M, L), tbl.reshape(rows, 1, M, L))
-    return y.reshape(F, W, L)
-
-
 def transform(spec: FieldSpec, plan: DevicePlan, x: torch.Tensor) -> torch.Tensor:
-    """Run the (i)NTT described by ``plan`` on x of shape (..., n, L).
+    """Run the (i)NTT described by ``plan`` on x of shape (..., n, L): one
+    fused pass per factor (D launches of K3 on the card, nothing else).
 
     Leading batch axes fold outermost into the column axis (they transform
     independently and identically).
     """
     L = spec.n_limbs
     n = plan.n
-    Fs = plan.Fs
-    D = len(Fs)
     batch = x.shape[:-2]
+    if tuple(x.shape[-2:]) != (n, L):
+        raise ValueError(f"transform of size {n}: got {tuple(x.shape)}")
     nb = 1
     for s in batch:
         nb *= s
-    C = n // Fs[0]
-    x = x.reshape(nb, Fs[0], C, L).permute(1, 0, 2, 3).reshape(Fs[0], nb * C, L)
-    Q = n
-    P = 1
-    for d in range(D):
-        F = Fs[d]
-        Q //= F
-        if d == 0 and plan.pro is not None:
-            x = _mul_table(spec, x, plan.pro, nb)
-        x = col_pass(spec, x, plan.stage_tws[d])
-        if plan.post[d] is not None:
-            x = _mul_table(spec, x, plan.post[d], nb)
-        if d == D - 1 and plan.epi is not None:
-            x = _mul_table(spec, x, plan.epi, nb)
-        if d < D - 1:
-            # (F_d, nb*M_d, L) -> (F_{d+1}, nb*M_{d+1}, L)
-            Fn = Fs[d + 1]
-            Qn = Q // Fn
-            x = x.reshape(F, nb, Fn, Qn, P, L).permute(2, 1, 3, 0, 4, 5)
-            x = x.reshape(Fn, nb * Qn * F * P, L)
-        P *= F
-    M = n // Fs[-1]
-    return x.reshape(Fs[-1], nb, M, L).permute(1, 0, 2, 3).reshape(*batch, n, L)
+    y = x if x.device.type == "cpu" else x.contiguous()
+    y = y.reshape(nb, n, L)
+    for d in range(len(plan.Fs)):
+        y = fused_pass(spec, plan, d, y, nb)
+    return y.reshape(*batch, n, L)
 
 
 class MrPlanSet:

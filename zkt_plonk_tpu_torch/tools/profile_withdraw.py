@@ -5,6 +5,9 @@ Usage (from the repository root, on a machine with a card):
     python -m zkt_plonk_tpu_torch.tools.profile_withdraw [--height 48]
         [--notes 3] [--table 1024] [--out profile_withdraw.json]
 
+The file imports the package by its absolute name, so it also profiles
+another tree of the port: ``PYTHONPATH=<tree> python <this file>``.
+
 It builds the withdraw circuit (default: the reference's HEIGHT=48,
 NOTES=3, TABLE=1024, n = 2^18), sets up the SRS, compiles, proves once to
 warm up, then
@@ -12,11 +15,14 @@ warm up, then
      ``torch.cuda.synchronize()`` (synthesis, the iNTT/blinding batches, the
      MSM commit batches, the z and quotient rounds, evaluations,
      linearization, openings; the remainder is host work in ``prove``),
-     counting the launches of each kernel in that proof;
+     counting the launches of each kernel in that proof, and those inside
+     its NTTs (``ops/ntt_mr.transform``);
   2. proves a third time under ``torch.profiler`` and sums the device time
-     of every kernel by name; busy time over the wall time of that proof
-     gives the device's busy share (profiling slows the host, so that
-     proof's wall time is longer than the unprofiled one).
+     of every kernel by name; each NTT runs inside a ``record_function``
+     range, whose span on the device (first kernel to last, gaps included)
+     is reported apart; busy time over the
+     wall time of that proof gives the device's busy share (profiling slows
+     the host, so that proof's wall time is longer than the unprofiled one).
 The card's name and power limit are printed beside the numbers, and the
 whole record is written as JSON to ``--out``.
 """
@@ -68,11 +74,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_withdraw needs a CUDA card")
 
-    from .. import _cuda
-    from ..circuits.withdraw_instance import build
-    from ..commitment import kzg
-    from ..cs import ConstraintSystem
-    from ..plonk import ZKTPlonk
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.circuits.withdraw_instance import build
+    from zkt_plonk_tpu_torch.commitment import kzg
+    from zkt_plonk_tpu_torch.cs import ConstraintSystem
+    from zkt_plonk_tpu_torch.ops import ntt_mr
+    from zkt_plonk_tpu_torch.plonk import ZKTPlonk
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -91,6 +98,22 @@ def main() -> int:
     compile_s = time.perf_counter() - t0
     rng = random.Random(42)
     inst.prove(compiled, circuit, rng=rng)  # warm-up: builds the prover's tables
+
+    # every NTT: its launches by kernel, inside a profiler range
+    transform = ntt_mr.transform
+    ntt_launches = defaultdict(int)
+    ntt_calls = [0]
+
+    def counted_transform(*a, **kw):
+        before = dict(_cuda.launches)
+        with torch.profiler.record_function("ntt_transform"):
+            out = transform(*a, **kw)
+        for k, v in _cuda.launches.items():
+            ntt_launches[k] += v - before[k]
+        ntt_calls[0] += 1
+        return out
+
+    ntt_mr.transform = counted_transform
 
     # 1. phase timing
     phases = defaultdict(float)
@@ -111,6 +134,8 @@ def main() -> int:
     _sync()
     prove_s = time.perf_counter() - t0
     launches = dict(_cuda.launches)
+    ntt_per_proof = {"transforms": ntt_calls[0],
+                     "launches": {k: v for k, v in ntt_launches.items() if v}}
     for name, fn in originals.items():
         setattr(prover, name, fn)
     prover.committer.commit_many = commit_many
@@ -127,13 +152,20 @@ def main() -> int:
         inst.prove(compiled, circuit, rng=rng)
         _sync()
         prof_wall = time.perf_counter() - t0
+    ntt_mr.transform = transform
     kernels = defaultdict(lambda: [0.0, 0])
+    ntt_span_s = 0.0
     for evt in prof.key_averages():
         # device-side events only (kernels, copies); the aten op that
         # launched a kernel reports the same device time again
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         if evt.key.startswith("Activity Buffer"):  # the profiler's own
+            continue
+        if evt.key == "ntt_transform":
+            # the range on the device, from each transform's first kernel to
+            # its last: a span, not a kernel
+            ntt_span_s = evt.self_device_time_total / 1e6
             continue
         if evt.self_device_time_total > 0:
             kernels[evt.key][0] += evt.self_device_time_total / 1e6
@@ -149,6 +181,8 @@ def main() -> int:
         "prove_s": prove_s,
         "phases_s": phases,
         "launches_per_proof": launches,
+        "ntt_per_proof": ntt_per_proof,
+        "ntt_device_span_s": ntt_span_s,
         "profiled_prove_wall_s": prof_wall,
         "device_busy_s": busy,
         "device_busy_share": busy / prof_wall if prof_wall else None,
@@ -163,10 +197,11 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"n={bound} compile_s={compile_s:.3f} prove_s={prove_s:.3f}")
     print(f"kernel launches in one proof: {launches}")
+    print(f"NTTs in one proof: {ntt_per_proof}")
     for k, v in sorted(phases.items(), key=lambda kv: -kv[1]):
         print(f"  phase {k:16s} {v:.4f} s")
     print(f"profiled prove wall {prof_wall:.3f} s, device busy {busy:.3f} s "
-          f"({100 * busy / prof_wall:.1f}%)")
+          f"({100 * busy / prof_wall:.1f}%), NTT device span {ntt_span_s * 1e3:.3f} ms")
     for k, v in top:
         print(f"  {v[0] * 1e3:10.2f} ms {v[1]:7d} calls  {k[:90]}")
     return 0
