@@ -28,17 +28,34 @@ Phases, one line each:
                 a tampered public input that must raise, the launch
                 count of every kernel over this main path, and the launches
                 inside each of its NTTs (D of K3, nothing else);
-then one JSON line of kernel records, nvidia-smi's line, and the result line.
+  6. poseidon — device Poseidon (width 4, every add and multiply a K1
+                launch) on one level of a 2^17-leaf Merkle tree (2^16 pair
+                rows) plus a short row, and on the short row alone, bit for
+                bit against the host hasher, with K1 launches and device
+                time per batch;
+  7. cli      — the port's CLI in-process at its defaults (BN254, KZG,
+                Merlin, HEIGHT=48, NOTES=3, TABLE=1024, Poseidon width 4,
+                SRS 2^20) in a temporary directory: compile, init-store,
+                five deposits, prove-withdraw with the EPK file, then
+                without it (the EPK rebuilt from the PK), the written proof
+                reloaded and verified with keys loaded from the files, and
+                a tampered public input that must raise;
+then one JSON line of kernel records (launches summed over the main paths
+of phases 5-7, each counted from zero around its own run), nvidia-smi's
+line, and the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -65,6 +82,7 @@ EC_ADD_OPS = 12 * PRODUCT_OPS + 9 * REDUCE_OPS
 
 GOLDEN_SHA256 = "504e1dbfaa28af3d1e9da112bbb4329374e06669416c39ec1fc8015df71d3cba"
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 
 def say(phase: str, **fields) -> None:
@@ -704,6 +722,171 @@ def withdraw(dev, height=48, notes=3, table_size=1024):
     say("ntt", transforms=sum(per_transform.values()), launches_per_transform=dict(per_transform))
     if bad:
         raise AssertionError(f"transforms that launched more than their D passes of K3: {bad}")
+    return launches, (cold_s, warm_s)
+
+
+def poseidon(dev):
+    """Device Poseidon at the size of one Merkle level of a 2^17-leaf tree."""
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.fields import BN254_FR, make_spec
+    from zkt_plonk_tpu_torch.hashing import Poseidon, bn254_constants
+    from zkt_plonk_tpu_torch.hashing.poseidon import device as pd
+
+    const = bn254_constants(4)
+    p = BN254_FR.modulus
+    rng = random.Random(17)
+    leaves = [rng.randrange(p) for _ in range(1 << 17)]
+    short = [rng.randrange(p)]
+    rows = [leaves[2 * i : 2 * i + 2] for i in range(1 << 16)] + [short]
+    launches = {}
+    for label, batch in (("2^16+1", rows), ("1", [short])):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        got = pd.hash_batch_device(const, batch, device=dev)
+        wall_s = time.perf_counter() - t0
+        counted = {k: v for k, v in _cuda.launches.items() if v}
+        for k, v in counted.items():
+            launches[k] = launches.get(k, 0) + v
+        checked = list(range(min(4096, len(batch) - 1))) + [len(batch) - 1]
+        want = Poseidon.hash_many_native(const, [batch[i] for i in checked])
+        if [got[i] for i in checked] != want:
+            raise AssertionError(f"device Poseidon disagrees with the host hasher (B = {label})")
+        if set(counted) != {"fp_binop"}:
+            raise AssertionError(f"device Poseidon launched {counted}")
+        # the permutation alone, on the staged state: ms per batch, batches
+        # queued behind a spin kernel (a small batch is bound by the host's
+        # rate of issuing its launches, not by the card)
+        spec = make_spec(BN254_FR)
+        tabs = pd.device_tables(spec, const, dev)
+        state = pd.initial_state(spec, const, batch, dev)
+        ms = time_cuda(lambda: pd.permute_batch(
+            spec, tabs["rc"], tabs["mds"], state, const.full_rounds // 2, const.partial_rounds),
+            reps=5, warmup=1)
+        say("poseidon", width=4, batch=label, rows_checked=len(checked), k1_launches=counted["fp_binop"],
+            ms=ms, wall_s=round(wall_s, 3), nvidia_smi=f"'{nvidia_smi_line()}'")
+        del state, tabs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cli_phase(dev, eth_prove_s):
+    """The port's CLI at its defaults, in-process, in a temporary directory."""
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch import cli
+    from zkt_plonk_tpu_torch.config import transcript_factory
+    from zkt_plonk_tpu_torch.plonk import CompiledCircuit, ZKTPlonk
+    from zkt_plonk_tpu_torch.proof_system.proof import VerificationError
+    from zkt_plonk_tpu_torch.proof_system.setup import extend_prover_key_from_pk
+    from zkt_plonk_tpu_torch.utils import serialize as ser
+
+    launches = {k: 0 for k in _cuda.KERNELS}
+    proof_launches = {k: 0 for k in _cuda.KERNELS}
+    prove_s = []
+    inner_prove = ZKTPlonk.prove
+
+    def timed_prove(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner_prove(self, *a, **kw)
+        torch.cuda.synchronize()
+        prove_s.append(round(time.perf_counter() - t0, 3))
+        return out
+
+    def run(step, argv, proof=False):
+        """One CLI call; its launches counted from zero around it."""
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        secs = round(time.perf_counter() - t0, 3)
+        for k, v in _cuda.launches.items():
+            launches[k] += v
+            if proof:
+                proof_launches[k] += v
+        say("cli", step=step, seconds=secs, printed=json.dumps(out.getvalue().strip().splitlines()))
+
+    addrs = ["0x" + f"{i + 1:02x}" * 20 for i in range(5)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ZKTPlonk.prove = timed_prove
+    try:
+        with tempfile.TemporaryDirectory(prefix="zkt-cli-") as d:
+            f = {k: os.path.join(d, k) for k in ("ck", "cvk", "pk", "vk", "epk", "tree", "notes")}
+            f["proof"] = os.path.join(d, "proof.json")
+            keys = ["--ck", f["ck"], "--cvk", f["cvk"], "--pk", f["pk"], "--vk", f["vk"],
+                    "--epk", f["epk"]]
+            stores = ["-t", f["tree"], "-n", f["notes"]]
+            run("compile", ["compile", "-d", str(1 << 20)] + keys)
+            sizes = {k: os.path.getsize(f[k] + ".npz" if k in ("ck", "pk", "epk") else f[k])
+                     for k in ("ck", "cvk", "pk", "vk", "epk")}
+            say("cli", file_bytes=json.dumps(sizes), total_gb=round(sum(sizes.values()) / 1e9, 3))
+            run("init-store", ["init-store"] + stores)
+            for i, a in enumerate(addrs):
+                run(f"deposit-{i}", ["deposit"] + stores + ["-i", a, "-a", str(1000 + 17 * i)])
+            withdraw = ["prove-withdraw"] + keys + stores + ["-x", "0", "-x", "1", "-x", "2"]
+            for a in addrs:
+                withdraw += ["-s", a]
+            withdraw += ["-i", addrs[0], "-a", "120"]
+            first = withdraw + ["--seed", "42", "--proof-out", f["proof"]]
+            args = cli.build_parser().parse_args(first)
+            pub = cli.withdraw_statement(args, cli.config_from_args(args), random.Random(42)).public_inputs
+            run("prove-withdraw (EPK file)", first, proof=True)
+
+            # the loaders alone, and the file EPK against the one K3 rebuilds from the PK
+            loads = {}
+
+            def load(name, loader):
+                t0 = time.perf_counter()
+                out = loader(f[name], device=dev)
+                torch.cuda.synchronize()
+                loads[name] = round(time.perf_counter() - t0, 3)
+                return out
+
+            ck = load("ck", ser.load_committer_key)
+            pk = load("pk", ser.load_prover_key)
+            epk = load("epk", ser.load_extended_prover_key)
+            rebuilt = extend_prover_key_from_pk(ck, pk)
+            for name, t in epk.coset.items():
+                if not torch.equal(t, rebuilt.coset[name]):
+                    raise AssertionError(f"EPK coset table {name} rebuilt from the PK differs from the file")
+            for name in ("x_coset", "zh_coset_inv", "l1_coset", "sigma_evals", "roots"):
+                if not torch.equal(getattr(epk, name), getattr(rebuilt, name)):
+                    raise AssertionError(f"EPK table {name} rebuilt from the PK differs from the file")
+            if epk.q_lookup_evals_host != rebuilt.q_lookup_evals_host:
+                raise AssertionError("EPK q_lookup evaluations rebuilt from the PK differ from the file")
+            say("cli", load_seconds=json.dumps(loads), epk_rebuilt_equals_file=True)
+            del ck, pk, epk, rebuilt
+            torch.cuda.empty_cache()
+
+            os.remove(f["epk"] + ".npz")
+            run("prove-withdraw (EPK rebuilt from PK)", withdraw, proof=True)
+
+            # the written proof, reloaded, against keys loaded from the files
+            proof = ser.proof_from_dict(ser.load_json(f["proof"]))
+            compiled = CompiledCircuit(ck=None, cvk=ser.load_kzg_vk(f["cvk"]), pk=None, epk=None,
+                                       vk=ser.load_verifier_key(f["vk"]))
+            inst = ZKTPlonk(transcript_factory=transcript_factory("merlin"), device=dev)
+            inst.verify(compiled, proof, pub)
+            try:
+                inst.verify(compiled, proof, [(pub[0] + 1) % inst.p] + pub[1:])
+            except (VerificationError, AssertionError):
+                tamper = "raised"
+            else:
+                raise AssertionError("the reloaded proof verified with a tampered public input")
+            leaves = ser.load_json(f["tree"])["next_index"]
+    finally:
+        ZKTPlonk.prove = inner_prove
+    if leaves != 7:
+        raise AssertionError(f"tree holds {leaves} leaves after 5 deposits and 2 withdraws")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    say("cli", transcript="merlin", prove_s=prove_s, ethereum_prove_cold_warm_s=list(eth_prove_s),
+        reloaded_proof="verified", tamper=tamper, tree_leaves=leaves,
+        peak_device_gb=round(peak_gb, 2), nvidia_smi=f"'{nvidia_smi_line()}'")
+    say("cli", proof_launches=json.dumps(proof_launches))
     return launches
 
 
@@ -765,10 +948,17 @@ def main() -> int:
     parity_ec_bucket_accumulate(records, dev)
 
     golden(dev)
-    launches = withdraw(dev)
+    launches, eth_prove_s = withdraw(dev)
+    for name, path_launches in (("withdraw", dict(launches)), ("poseidon", poseidon(dev)),
+                                ("cli", cli_phase(dev, eth_prove_s))):
+        say("launches", path=name, **path_launches)
+        if name != "withdraw":
+            for k, v in path_launches.items():
+                launches[k] += v
     missing = [k for k in _cuda.KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    say("total", wall_s=round(time.perf_counter() - T_START, 1))
 
     kernels = []
     for name in _cuda.KERNELS:

@@ -9,7 +9,13 @@
     ``zkt_plonk_tpu_torch.convert``, proves to the same golden digest;
 (d) the proof verifies, and the tamper probes of ``tests/test_e2e.py``
     (wrong public input, tampered evaluation) raise;
-and the port imports with neither ``jax`` nor ``zkt_plonk_tpu`` loaded.
+(e) with the Merlin transcript of each package's ``config`` (the CLI's
+    default), the same TinyCircuit, SRS and seed give byte-equal proofs in
+    both packages, and the port's verifies and fails its tamper probes;
+(f) with ``ZKT_PLONK_TIMING`` on, the prover prints its seven sections
+    and proves the same bytes;
+and the port imports with neither ``jax`` nor ``zkt_plonk_tpu`` loaded,
+as a whole and module by module for the CLI's modules.
 """
 
 import copy
@@ -23,12 +29,14 @@ import numpy as np
 import pytest
 import torch
 
+from zkt_plonk_tpu import config as jconfig
 from zkt_plonk_tpu.commitment import kzg as jkzg
 from zkt_plonk_tpu.cs import LookupTable as JLookupTable
 from zkt_plonk_tpu.cs import lt as jlt
 from zkt_plonk_tpu.curves import make_context as jax_make_context
 from zkt_plonk_tpu.plonk import ZKTPlonk as JZKTPlonk
-from zkt_plonk_tpu_torch import convert
+from zkt_plonk_tpu.utils import arkserde as jarkserde
+from zkt_plonk_tpu_torch import config, convert
 from zkt_plonk_tpu_torch.commitment import kzg
 from zkt_plonk_tpu_torch.cs import LookupTable, lt
 from zkt_plonk_tpu_torch.plonk import ZKTPlonk
@@ -120,6 +128,24 @@ def test_verify_and_tamper_probes(golden):
         inst.verify(compiled, tampered, [8])
 
 
+def test_timing_sections_change_nothing(golden, capsys):
+    """With ``ZKT_PLONK_TIMING`` on, the prover prints its seven sections
+    and still proves the golden bytes."""
+    from zkt_plonk_tpu_torch.utils import profiling
+
+    inst, compiled, _ = golden
+    profiling.timing_enable(True)
+    try:
+        proof = inst.prove(compiled, TinyCircuit(lt), rng=random.Random(9))
+    finally:
+        profiling.timing_enable(False)
+    err = capsys.readouterr().err
+    for name in ("witness gather", "round1+2 commit a/b/c/t/h1/h2", "round3 z1/z2",
+                 "round4 quotient", "round5 evaluations", "linearization", "openings"):
+        assert f"[timing] {name}: " in err, name
+    assert _digest(inst, proof) == (802, GOLDEN)
+
+
 def test_compile_matches_jax_keys():
     table = [1, 2, 5]
     jinst = JZKTPlonk(curve="bn254", table=JLookupTable(table, size=100))
@@ -169,6 +195,56 @@ def test_converted_jax_keys_prove_golden():
     inst = ZKTPlonk(curve="bn254", table=LookupTable([1, 2, 5], size=63), device="cpu")
     proof = inst.prove(compiled, TinyCircuit(lt), rng=random.Random(9))
     assert _digest(inst, proof) == (802, GOLDEN)
+
+
+def test_merlin_proof_bytes_match_jax():
+    jinst = JZKTPlonk(curve="bn254", table=JLookupTable([1, 2, 5], size=63),
+                      transcript_factory=jconfig.transcript_factory("merlin"))
+    jck, jcvk = jkzg.setup(jinst.ctx, max_degree=4 * 64, tau=123456789)
+    jc = jinst.compile(TinyCircuit(jlt), jck, jcvk)
+    jproof = jinst.prove(jc, TinyCircuit(jlt), rng=random.Random(9))
+    want = jarkserde.proof_to_bytes(jproof, jinst.ctx.curve.fq.modulus, jinst.ctx.curve.fr.modulus)
+
+    inst = ZKTPlonk(curve="bn254", table=LookupTable([1, 2, 5], size=63),
+                    transcript_factory=config.transcript_factory("merlin"), device="cpu")
+    ck, cvk = kzg.setup(inst.ctx, max_degree=4 * 64, tau=123456789, device="cpu")
+    compiled = inst.compile(TinyCircuit(lt), ck, cvk)
+    proof = inst.prove(compiled, TinyCircuit(lt), rng=random.Random(9))
+    got = arkserde.proof_to_bytes(proof, inst.ctx.curve.fq.modulus, inst.ctx.curve.fr.modulus)
+    assert len(got) == 802 and got == want
+    assert hashlib.sha256(got).hexdigest() != GOLDEN  # the transcript matters
+
+    inst.verify(compiled, proof, [8])
+    with pytest.raises((VerificationError, AssertionError)):
+        inst.verify(compiled, proof, [9])
+    tampered = copy.deepcopy(proof)
+    tampered.evaluations.a = (tampered.evaluations.a + 1) % inst.p
+    with pytest.raises(VerificationError):
+        inst.verify(compiled, tampered, [8])
+    # an Ethereum verifier refuses the Merlin proof
+    eth = ZKTPlonk(curve="bn254", table=LookupTable([1, 2, 5], size=63), device="cpu")
+    with pytest.raises((VerificationError, AssertionError)):
+        eth.verify(compiled, proof, [8])
+
+
+@pytest.mark.parametrize("module", [
+    "cli", "config", "utils.serialize", "transcript.merlin", "hashing.poseidon.device",
+])
+def test_cli_modules_import_without_jax(module):
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module('zkt_plonk_tpu_torch.{module}')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'zkt_plonk_tpu' or m.startswith('zkt_plonk_tpu.')]\n"
+        "assert not bad, bad\n"
+        f"assert 'zkt_plonk_tpu_torch.{module}' in sys.modules\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
 
 
 def test_port_imports_without_jax():

@@ -30,6 +30,7 @@ from ..fields import device as fd
 from ..fields.limbs import ints_to_array
 from ..ops import ntt
 from ..utils.domain import make_domain
+from ..utils.profiling import section
 from .keys import ExtendedProverKey, ProverKey, VerifierKey
 from .proof import Proof, ProofEvaluations
 
@@ -275,13 +276,15 @@ class Prover:
 
     def prove(self, composer: ProvingComposer, transcript, rng) -> Proof:
         n, p, spec = self.n, self.p, self.spec
+        dev = self.device
         composer.pad_to(n)
 
         # PI to transcript (``prove.rs:110``)
         transcript.append_scalars("pi", composer.pi_values())
 
         # --- round 1: wire polynomials --------------------------------
-        a_ints, b_ints, c_ints = composer.wire_evals()
+        with section("witness gather"):
+            a_ints, b_ints, c_ints = composer.wire_evals()
         wires = self.stack_rows([a_ints, b_ints, c_ints])
         wire_blinders = self.blinders(rng, [2, 2, 2])
 
@@ -296,10 +299,11 @@ class Prover:
         lookup_blinders = self.blinders(rng, [0, 3, 2])
 
         # rounds 1+2 as one phase: 6-poly iNTT batch + 6-MSM batch
-        six_polys = self.commit_batch(
-            torch.cat([wires, lookup_evals]), torch.cat([wire_blinders, lookup_blinders])
-        )
-        six_aff = self.committer.commit_many(six_polys)
+        with section("round1+2 commit a/b/c/t/h1/h2", sync=dev):
+            six_polys = self.commit_batch(
+                torch.cat([wires, lookup_evals]), torch.cat([wire_blinders, lookup_blinders])
+            )
+            six_aff = self.committer.commit_many(six_polys)
         abc_polys, th_polys = six_polys[:3], six_polys[3:]
         abc_aff, th_aff = six_aff[:3], six_aff[3:]
         transcript.append_commitment("a_commit", abc_aff[0])
@@ -321,12 +325,13 @@ class Prover:
         z_scalars = self.vec(
             [beta, beta * K1 % p, beta * K2 % p, gamma, delta, eps_1pd, (1 + delta) % p, epsilon]
         )
-        z_polys = self.z_round(
-            wires, self.rows(f_ints), lookup_evals[0], lookup_evals[1], lookup_evals[2],
-            z_scalars, z_blinders,
-        )
-        del wires, lookup_evals
-        z_aff = self.committer.commit_many(z_polys)
+        with section("round3 z1/z2", sync=dev):
+            z_polys = self.z_round(
+                wires, self.rows(f_ints), lookup_evals[0], lookup_evals[1], lookup_evals[2],
+                z_scalars, z_blinders,
+            )
+            del wires, lookup_evals
+            z_aff = self.committer.commit_many(z_polys)
         transcript.append_commitment("z1_commit", z_aff[0])
         transcript.append_commitment("z2_commit", z_aff[1])
 
@@ -344,9 +349,10 @@ class Prover:
         a5 = a4 * alpha % p
         q_scalars = self.vec([beta, beta * K1 % p, beta * K2 % p, gamma, delta, epsilon, eps_1pd])
         q_weights = self.vec([alpha, alpha, a3 * (1 + delta) % p, a3, a2, a4, a5])
-        q_polys = self.quotient_round(polys8, pi_evals, q_scalars, q_weights, q_blinders)
-        del polys8
-        q_aff = self.committer.commit_many(q_polys)
+        with section("round4 quotient", sync=dev):
+            q_polys = self.quotient_round(polys8, pi_evals, q_scalars, q_weights, q_blinders)
+            del polys8
+            q_aff = self.committer.commit_many(q_polys)
         transcript.append_commitment("q_lo_commit", q_aff[0])
         transcript.append_commitment("q_mid_commit", q_aff[1])
         transcript.append_commitment("q_hi_commit", q_aff[2])
@@ -361,9 +367,10 @@ class Prover:
              pkp["q_lookup"], th_polys[0], th_polys[2]]
         )
         polys_wxi = torch.stack([z_polys[0], th_polys[0], z_polys[1], th_polys[1]])  # z1, t, z2, h1
-        ev_xi, ev_wxi = self.evaluate(polys_xi, polys_wxi, xi, wxi)
-        ev_xi_i = spec.decode(ev_xi.cpu().numpy())
-        ev_wxi_i = spec.decode(ev_wxi.cpu().numpy())
+        with section("round5 evaluations", sync=dev):
+            ev_xi, ev_wxi = self.evaluate(polys_xi, polys_wxi, xi, wxi)
+            ev_xi_i = spec.decode(ev_xi.cpu().numpy())
+            ev_wxi_i = spec.decode(ev_wxi.cpu().numpy())
 
         evals = ProofEvaluations(
             a=ev_xi_i[0],
@@ -388,7 +395,8 @@ class Prover:
             evals, alpha, beta, gamma, delta, epsilon, xi, zh_eval, l1_eval,
             pkp, abc_polys, z_polys, th_polys, q_polys,
         )
-        r_poly = self.linearize(torch.stack(poly_list), self.vec(scalars))
+        with section("linearization", sync=dev):
+            r_poly = self.linearize(torch.stack(poly_list), self.vec(scalars))
 
         # --- openings --------------------------------------------------
         eta = transcript.challenge_scalar("eta")
@@ -397,8 +405,9 @@ class Prover:
              pkp["q_lookup"], th_polys[0], th_polys[2]]
         )
         saw_polys = torch.stack([z_polys[0], z_polys[1], th_polys[0], th_polys[1]])
-        aw_aff = self.scheme.open_batch(self, aw_polys, xi, eta, b"aw")
-        saw_aff = self.scheme.open_batch(self, saw_polys, wxi, eta, b"saw")
+        with section("openings", sync=dev):
+            aw_aff = self.scheme.open_batch(self, aw_polys, xi, eta, b"aw")
+            saw_aff = self.scheme.open_batch(self, saw_polys, wxi, eta, b"saw")
 
         return Proof(
             a_commit=abc_aff[0],

@@ -1,2 +1,3 @@
 from .ethereum import EthereumTranscript
+from .merlin import MerlinTranscript, Strobe128
 from .keccak import keccak256
