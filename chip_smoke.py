@@ -2,32 +2,40 @@
 
 Run from the repository root: ``python3 chip_smoke.py``.  Needs one CUDA
 card (it exits non-zero without one), ``nvcc`` and nothing else.
+``--phases parity,withdraw`` runs a subset (and prints no result line).
 
 Phases, one line each:
   1. device   — the card's name, and nvidia-smi's name and power limit;
-  2. build    — nvcc builds of the five kernels in csrc/ (in parallel),
-                with ptxas's register report and each kernel's SASS
-                instruction mix;
-  3. parity   — each kernel against its plain PyTorch version on the same
-                card tensors at the main path's shapes (and against Python
-                ints on a sample), with its device time per call (CUDA
-                events around calls queued back to back), the plain
-                version's time and the bound; K2 at one element (the
-                prover's shape) and 2^12, for e = p - 2 and e = 5; K3's
-                fused passes at every pass of the (10, 2^18) iNTT and the
-                (36, 2^18) forward transform, then whole transforms at the
-                prover's shapes (36, 4 and 10 polynomials of 2^18), each
-                D launches of K3 and nothing else; K4a (the MSM's bucket
-                accumulation) at n = 2^18 + 4 with B = 3 scalar vectors,
-                including 0, 1, r - 1, negative-zero digits and runs of
-                one digit, and its time at the prover's batches B = 1, 2,
-                3, 6;
+  2. build    — nvcc builds of the five kernel sources in csrc/ (in
+                parallel), with ptxas's registers and spills for every
+                kernel instance and each kernel's SASS instruction mix;
+  3. parity   — each kernel instance against its plain PyTorch version on
+                the same card tensors at the main paths' shapes (and
+                against Python ints on a sample), with its device time per
+                call (CUDA events around calls queued back to back), the
+                plain version's time and the bound: K1 on BN254's Fr and
+                Fq, BLS12-381's Fr and (L = 24) BLS12-381's Fq; K2 lazy on
+                BN254's Fr (one element and 2^12, e = p - 2 and 5) and
+                strict on BLS12-381's Fr (e = r - 2); K3 lazy on BN254's Fr
+                and strict on BLS12-381's Fr: every fused pass of the
+                (10, 2^18) iNTT and the (36, 2^18) forward transform
+                (strict: the words between passes bit for bit), whole
+                transforms at 2^12 and 2^18, and at the prover's shapes
+                (36, 4 and 10 polynomials of 2^18) each D launches of its
+                instance and nothing else; K4 on 2^16 pairs of BN254,
+                BLS12-381 and BLS12-377 points (L = 16 and 24; 3b = 9, 12,
+                3) with identity, doubling and inverse pairs; K4a (the
+                MSM's bucket accumulation) at n = 2^18 + 4 on BN254 and
+                BLS12-381 with B = 3 scalar vectors, including 0, 1,
+                r - 1, negative-zero digits and runs of one digit, and its
+                time at the prover's batches B = 1, 2, 3, 6;
   4. golden   — the TinyCircuit proof on the card: 802 bytes, fixed sha256;
   5. withdraw — the withdraw circuit at HEIGHT=48, NOTES=3, TABLE=1024
-                (n = 2^18): SRS setup, compile, cold and warm prove, verify,
-                a tampered public input that must raise, the launch
-                count of every kernel over this main path, and the launches
-                inside each of its NTTs (D of K3, nothing else);
+                (n = 2^18) on BN254: SRS setup, compile, cold and warm
+                prove, verify, a tampered public input that must raise, the
+                launch count of every kernel instance over this main path,
+                and the launches inside each of its NTTs (D of K3, nothing
+                else);
   6. poseidon — device Poseidon (width 4, every add and multiply a K1
                 launch) on one level of a 2^17-leaf Merkle tree (2^16 pair
                 rows) plus a short row, and on the short row alone, bit for
@@ -40,9 +48,21 @@ Phases, one line each:
                 without it (the EPK rebuilt from the PK), the written proof
                 reloaded and verified with keys loaded from the files, and
                 a tampered public input that must raise;
-then one JSON line of kernel records (launches summed over the main paths
-of phases 5-7, each counted from zero around its own run), nvidia-smi's
-line, and the result line.
+  8. bls12_withdraw — phase 5 on BLS12-381 + KZG with the Merlin
+                transcript (48-byte coordinates): the same instance with
+                Poseidon constants generated for BLS12-381's Fr, SRS of
+                2^20 + 1 points at L = 24, K2 and K3 in their strict mode
+                (the launches inside each NTT: D of ntt_col_pass/strict);
+  9. matrix   — IPA commits on the card against the plain versions on the
+                CPU (m = 2^12 on BN254, 2^10 on BLS12-381) and against the
+                host MSM at m = 2^8; then the five configurations of
+                tests/test_e2e.py:101-161 (IPA on BN254, BLS12-381 and
+                BLS12-377; KZG on both BLS12 curves): each proves on the
+                card and on the CPU with equal fields, verifies, and fails
+                its tamper probes; the KZG proofs' bytes have fixed sha256;
+then one JSON line of kernel records, one per instance (launches summed
+over the main paths of phases 5-9, each counted from zero around its own
+run), nvidia-smi's line, and the result line.
 """
 
 from __future__ import annotations
@@ -79,8 +99,17 @@ PRODUCT_OPS = 2 * 8 * 8
 REDUCE_OPS = 8 + 2 * 8 * 8
 MODMUL_OPS = PRODUCT_OPS + REDUCE_OPS
 EC_ADD_OPS = 12 * PRODUCT_OPS + 9 * REDUCE_OPS
+# the same at 12 words (L = 24, the BLS12 base fields)
+MODMUL_OPS_24 = 2 * 12 * 12 + 12 + 2 * 12 * 12
+EC_ADD_OPS_24 = 12 * (2 * 12 * 12) + 9 * (12 + 2 * 12 * 12)
 
 GOLDEN_SHA256 = "504e1dbfaa28af3d1e9da112bbb4329374e06669416c39ec1fc8015df71d3cba"
+# the SmallCircuitDef proofs of tests/test_e2e.py over KZG (Merlin, 48-byte
+# coordinates): the JAX package's and the port's CPU path's bytes
+MATRIX_KZG_SHA256 = {
+    "bls12_381": "b2b043dfe1ab8c68d92d5b8e87142800d2af78ed6696914e381937a51481bf73",
+    "bls12_377": "87afcb2106fb26cd96b1864c780e6a6294ba1dcf6073506f0fb6465a4b8fa384",
+}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 
@@ -158,36 +187,42 @@ def random_limbs(spec, n: int, rng: np.random.Generator) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def adversarial_pairs(p: int, rng: random.Random):
+def adversarial_pairs(p: int, rng: random.Random, bits: int = 256):
     pairs = []
     for tgt in [0, 1, 2, 3, p - 1, p - 2, p - 3]:
         for _ in range(32):
             a = rng.randrange(1, p)
             pairs.append((a, tgt * pow(a, -1, p) % p))
     fixtures = [0, 1, 2, p - 1, p - 2, (p - 1) // 2, (p + 1) // 2]
-    fixtures += [((1 << k) - 1) % p for k in range(16, 16 * 16 + 1, 16)]
-    fixtures += [(1 << k) % p for k in range(15, 16 * 16, 16)]
+    fixtures += [((1 << k) - 1) % p for k in range(16, bits + 1, 16)]
+    fixtures += [(1 << k) % p for k in range(15, bits, 16)]
     pairs += [(x, y) for x in fixtures for y in fixtures]
     return pairs
 
 
 def parity_fp_binop(records, dev):
-    from zkt_plonk_tpu_torch.fields import BN254_FQ, BN254_FR, make_spec
+    """K1 on BN254's Fr and Fq and BLS12-381's Fr (the L = 16 instance) and
+    on BLS12-381's Fq (the L = 24 instance), 2^20 elements each."""
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.fields import BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR, make_spec
     from zkt_plonk_tpu_torch.fields import cuda as fc
     from zkt_plonk_tpu_torch.fields.limbs import array_to_ints, ints_to_array
 
     n = 1 << 20
-    worst = 0
+    worst = {}
     times = {}
-    for params in (BN254_FR, BN254_FQ):
+    timed = {BN254_FR.name: "fp_binop", BLS12_381_FQ.name: "fp_binop/L24"}
+    for params in (BN254_FR, BN254_FQ, BLS12_381_FR, BLS12_381_FQ):
         spec = make_spec(params)
+        L = spec.n_limbs
+        key = _cuda.instance("fp_binop", L)
         p = spec.modulus
         gen = np.random.default_rng(11)
         A = random_limbs(spec, n, gen)
         B = random_limbs(spec, n, gen)
-        pairs = adversarial_pairs(p, random.Random(99))
-        A[: len(pairs)] = ints_to_array([a for a, _ in pairs], 16)
-        B[: len(pairs)] = ints_to_array([b for _, b in pairs], 16)
+        pairs = adversarial_pairs(p, random.Random(99), 16 * L)
+        A[: len(pairs)] = ints_to_array([a for a, _ in pairs], L)
+        B[: len(pairs)] = ints_to_array([b for _, b in pairs], L)
         a = torch.from_numpy(A).to(dev)
         b = torch.from_numpy(B).to(dev)
         sample = list(range(len(pairs))) + [int(i) for i in gen.integers(0, n, 300)]
@@ -198,90 +233,106 @@ def parity_fp_binop(records, dev):
             ("add", lambda x, y: (x + y) % p),
             ("sub", lambda x, y: (x - y) % p),
         ):
+            before = _cuda.launches[key]
             got = fc.binop(spec, op, a, b)
+            if _cuda.launches[key] != before + 1:
+                raise AssertionError(f"fp_binop on {params.name} did not launch {key}")
             plain = fc.binop_plain(spec, op, a, b)
             torch.cuda.synchronize()
             err = max_abs_err(got, plain)
-            worst = max(worst, err)
+            worst[key] = max(worst.get(key, 0), err)
             want = [ref(x, y) for x, y in zip(a_int, b_int)]
             if err != 0 or array_to_ints(got[sample].cpu().numpy()) != want:
                 raise AssertionError(f"fp_binop {op} on {params.name} disagrees (max_abs_err {err})")
-            if params is BN254_FR:
-                times[op] = (
+            if params.name in timed:
+                times[(key, op)] = (
                     time_cuda(lambda: fc.binop(spec, op, a, b)),
                     time_cuda(lambda: fc.binop_plain(spec, op, a, b), reps=3, warmup=1),
                 )
+        say("parity", kernel=key, field=params.name, shape="2^20", max_abs_err=worst[key])
         del a, b
-    for op in ("mul", "add", "sub"):
-        ops = n * MODMUL_OPS if op == "mul" else 0
-        b_ms, b_by = bound_ms(3 * ELEM_BYTES * n, ops)
-        say("parity", kernel=f"fp_binop.{op}", shape=f"2^20xFr", ms=times[op][0],
-            plain_ms=times[op][1], bound_ms=b_ms, bound_by=b_by, max_abs_err=worst)
-    k_ms, p_ms = times["mul"]
-    b_ms, b_by = bound_ms(3 * ELEM_BYTES * n, n * MODMUL_OPS)
-    records["fp_binop"] = dict(
-        name="fp_binop", route="cuda", source="zkt_plonk_tpu_torch/csrc/fp_binop.cu",
-        replaces="zkt_plonk_tpu/fields/pallas.py:310", max_abs_err=worst, ms=k_ms,
-        plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    )
+    for key in timed.values():
+        L = 24 if key.endswith("L24") else 16
+        mul_ops = MODMUL_OPS_24 if L == 24 else MODMUL_OPS
+        for op in ("mul", "add", "sub"):
+            b_ms, b_by = bound_ms(3 * 4 * L * n, n * mul_ops if op == "mul" else 0)
+            say("parity", kernel=f"{key}.{op}", shape=f"2^20 L={L}", ms=times[(key, op)][0],
+                plain_ms=times[(key, op)][1], bound_ms=b_ms, bound_by=b_by, max_abs_err=worst[key])
+        k_ms, p_ms = times[(key, "mul")]
+        b_ms, b_by = bound_ms(3 * 4 * L * n, n * mul_ops)
+        records[key] = dict(
+            name=key, route="cuda", source="zkt_plonk_tpu_torch/csrc/fp_binop.cu",
+            replaces="zkt_plonk_tpu/fields/pallas.py:310", max_abs_err=worst[key], ms=k_ms,
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        )
 
 
 SQUARE_OPS = 2 * 36 + REDUCE_OPS  # a squaring: 36 distinct word products
 
 
 def parity_fp_pow_chain(records, dev):
-    from zkt_plonk_tpu_torch.fields import BN254_FR, make_spec
+    """K2 lazy on BN254's Fr (e = p - 2 and 5) and strict on BLS12-381's Fr
+    (e = r - 2, the prover's inversion), at one element and 2^12."""
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.fields import BLS12_381_FR, BN254_FR, make_spec
     from zkt_plonk_tpu_torch.fields import cuda as fc
     from zkt_plonk_tpu_torch.fields.limbs import array_to_ints
 
-    spec = make_spec(BN254_FR)
-    p = spec.modulus
-    A = random_limbs(spec, 1 << 12, np.random.default_rng(5))
-    A[:7] = 0
-    A[7, :] = 0
-    A[7, 0] = 1
-    A[8] = np.asarray(spec.modulus_limbs, dtype=np.int32)
-    A[8, 0] -= 1  # p - 1
-    worst = 0
-    timed = {}
-    for e in (p - 2, 5):
-        sched = fc.window_schedule(e)
-        squarings = sum(s for s, _ in sched.steps) + sched.tail + (sched.ntab > 1)
-        multiplies = sched.products() - squarings
-        ops = squarings * SQUARE_OPS + multiplies * MODMUL_OPS
-        for n in (1, 1 << 12):
-            # the prover's one element: a random one (row 9)
-            rows = A[9:10] if n == 1 else A
-            a = torch.from_numpy(rows).to(dev)
-            got = fc.pow_chain(spec, a, e)
-            plain = fc.pow_chain_plain(spec, a, e)
-            torch.cuda.synchronize()
-            err = max_abs_err(got, plain)
-            worst = max(worst, err)
-            sample = list(range(min(n, 300)))
-            want = [pow(x, e, p) for x in array_to_ints(rows[sample])]
-            if err != 0 or array_to_ints(got[sample].cpu().numpy()) != want:
-                raise AssertionError(f"fp_pow_chain e={e} n={n} disagrees (max_abs_err {err})")
-            k_ms = time_cuda(lambda: fc.pow_chain(spec, a, e))
-            p_ms = time_cuda(lambda: fc.pow_chain_plain(spec, a, e), reps=1, warmup=0)
-            b_ms, b_by = bound_ms(2 * ELEM_BYTES * n, n * ops)
-            label = "p-2" if e == p - 2 else str(e)
-            say("parity", kernel="fp_pow_chain", shape=f"{n}xFr,e={label}", window=sched.window,
-                products=sched.products(), squarings=squarings, ms=k_ms, plain_ms=p_ms,
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-            timed[(e, n)] = (k_ms, p_ms, b_ms, b_by)
-    # one element: the time per product of the chain's latency, the slope
-    # between the two exponents
-    big, small = fc.window_schedule(p - 2).products(), fc.window_schedule(5).products()
-    say("time", kernel="fp_pow_chain", shape="1xFr", us_per_product=(
-        (timed[(p - 2, 1)][0] - timed[(5, 1)][0]) * 1e3 / (big - small)))
-    # the record: the prover's shape, one element, e = p - 2
-    k_ms, p_ms, b_ms, b_by = timed[(p - 2, 1)]
-    records["fp_pow_chain"] = dict(
-        name="fp_pow_chain", route="cuda", source="zkt_plonk_tpu_torch/csrc/fp_pow_chain.cu",
-        replaces="zkt_plonk_tpu/fields/pallas.py:412", max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    )
+    for params, key in ((BN254_FR, "fp_pow_chain"), (BLS12_381_FR, "fp_pow_chain/strict")):
+        spec = make_spec(params)
+        p = spec.modulus
+        A = random_limbs(spec, 1 << 12, np.random.default_rng(5))
+        A[:7] = 0
+        A[7, :] = 0
+        A[7, 0] = 1
+        A[8] = np.asarray(spec.modulus_limbs, dtype=np.int32)
+        A[8, 0] -= 1  # p - 1
+        worst = 0
+        timed = {}
+        exponents = (p - 2, 5) if key == "fp_pow_chain" else (p - 2,)
+        for e in exponents:
+            sched = fc.window_schedule(e)
+            squarings = sum(s for s, _ in sched.steps) + sched.tail + (sched.ntab > 1)
+            multiplies = sched.products() - squarings
+            ops = squarings * SQUARE_OPS + multiplies * MODMUL_OPS
+            for n in (1, 1 << 12):
+                # the prover's one element: a random one (row 9)
+                rows = A[9:10] if n == 1 else A
+                a = torch.from_numpy(rows).to(dev)
+                _cuda.reset_launches()
+                got = fc.pow_chain(spec, a, e)
+                launched = {k: v for k, v in _cuda.launches.items() if v}
+                if launched != {key: 1}:
+                    raise AssertionError(f"fp_pow_chain on {params.name} launched {launched}")
+                plain = fc.pow_chain_plain(spec, a, e)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, plain)
+                worst = max(worst, err)
+                sample = list(range(min(n, 300)))
+                want = [pow(x, e, p) for x in array_to_ints(rows[sample])]
+                if err != 0 or array_to_ints(got[sample].cpu().numpy()) != want:
+                    raise AssertionError(f"{key} e={e} n={n} disagrees (max_abs_err {err})")
+                k_ms = time_cuda(lambda: fc.pow_chain(spec, a, e))
+                p_ms = time_cuda(lambda: fc.pow_chain_plain(spec, a, e), reps=1, warmup=0)
+                b_ms, b_by = bound_ms(2 * ELEM_BYTES * n, n * ops)
+                label = "p-2" if e == p - 2 else str(e)
+                say("parity", kernel=key, shape=f"{n}x{params.name},e={label}", window=sched.window,
+                    products=sched.products(), squarings=squarings, ms=k_ms, plain_ms=p_ms,
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+                timed[(e, n)] = (k_ms, p_ms, b_ms, b_by)
+        if key == "fp_pow_chain":
+            # one element: the time per product of the chain's latency, the
+            # slope between the two exponents
+            big, small = fc.window_schedule(p - 2).products(), fc.window_schedule(5).products()
+            say("time", kernel=key, shape="1xFr", us_per_product=(
+                (timed[(p - 2, 1)][0] - timed[(5, 1)][0]) * 1e3 / (big - small)))
+        # the record: the prover's shape, one element, e = p - 2
+        k_ms, p_ms, b_ms, b_by = timed[(p - 2, 1)]
+        records[key] = dict(
+            name=key, route="cuda", source="zkt_plonk_tpu_torch/csrc/fp_pow_chain.cu",
+            replaces="zkt_plonk_tpu/fields/pallas.py:412", max_abs_err=worst, ms=k_ms,
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        )
 
 
 def _horner(coeffs, x, p):
@@ -319,20 +370,23 @@ def pass_bound(plan, d, nb):
     return bound_ms(nbytes, products * MODMUL_OPS)
 
 
-def parity_ntt_col_pass(records, dev):
+def parity_ntt_col_pass(records, dev, params, key):
+    """K3 on one scalar field: ``ntt_col_pass`` (lazy, BN254's Fr) or
+    ``ntt_col_pass/strict`` (BLS12-381's Fr, whose words between passes are
+    canonical and must equal the plain version's bit for bit)."""
     from zkt_plonk_tpu_torch import _cuda
-    from zkt_plonk_tpu_torch.fields import BN254_FR
     from zkt_plonk_tpu_torch.fields.limbs import array_to_ints
     from zkt_plonk_tpu_torch.ops import ntt, ntt_mr
     from zkt_plonk_tpu_torch.utils.domain import make_domain
 
-    p = BN254_FR.modulus
+    strict = key.endswith("/strict")
+    p = params.modulus
     gen = np.random.default_rng(21)
     worst = 0
     # whole transforms: 2^12 against the plain path on the CPU, 2^18 against
     # host Horner evaluations and round trips
     for logn in (12, 18):
-        dom = make_domain(BN254_FR, 1 << logn)
+        dom = make_domain(params, 1 << logn)
         spec = dom.spec
         plan = dom.plan(dev)
         X = random_limbs(spec, 2 << logn, gen).reshape(2, 1 << logn, 16)
@@ -366,14 +420,14 @@ def parity_ntt_col_pass(records, dev):
             batched = ntt.ifft(spec, plan, Y)
             if not torch.equal(batched[3], ntt.ifft(spec, plan, Y[3])):
                 raise AssertionError("batched iNTT row differs from the single iNTT")
-        say("parity", kernel="ntt_col_pass", transforms=f"2^{logn}", ok=True)
+        say("parity", kernel=key, transforms=f"2^{logn}", ok=True)
         del x, outs
 
     # each fused pass against its plain version on the same card tensors, at
     # every pass of the (10, 2^18) iNTT of setup and the (36, 2^18) forward
-    # transform of the quotient round; pass d+1 takes the kernel's own lazy
-    # output (values below 2p), the plain version its canonical form
-    dom = make_domain(BN254_FR, 1 << 18)
+    # transform of the quotient round; pass d+1 takes the kernel's own
+    # output (lazy: values below 2p), the plain version its canonical form
+    dom = make_domain(params, 1 << 18)
     spec = dom.spec
     n = dom.size
     for name, nb in (("ifft", 10), ("fft", 36)):
@@ -389,14 +443,16 @@ def parity_ntt_col_pass(records, dev):
             err = max_abs_err(got if last else ntt_mr.words_canonical(spec, got), plain)
             worst = max(worst, err)
             if err != 0:
-                raise AssertionError(f"ntt_col_pass {name} nb={nb} pass {d} disagrees (max_abs_err {err})")
+                raise AssertionError(f"{key} {name} nb={nb} pass {d} disagrees (max_abs_err {err})")
+            if strict and not torch.equal(got, plain if last else ntt_mr.limbs_to_words(plain)):
+                raise AssertionError(f"{key} {name} nb={nb} pass {d}: words differ from the plain version's")
             k_ms = time_cuda(lambda: ntt_mr.fused_pass(spec, plan, d, y, nb))
             fields = dict(ms=k_ms)
             if nb == 10:
                 fields["plain_ms"] = time_cuda(
                     lambda: ntt_mr.fused_pass_plain(spec, plan, d, plain_in, nb), reps=1, warmup=0)
             b_ms, b_by = pass_bound(plan, d, nb)
-            say("parity", kernel="ntt_col_pass", shape=f"({nb},2^18) {name} pass {d} F={F}",
+            say("parity", kernel=key, shape=f"({nb},2^18) {name} pass {d} F={F}",
                 **fields, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
             del plain, plain_in
             y = got
@@ -413,7 +469,7 @@ def parity_ntt_col_pass(records, dev):
         _cuda.reset_launches()
         fn(spec, plans, x)
         launched = {k: v for k, v in _cuda.launches.items() if v}
-        if launched != {"ntt_col_pass": len(plan.Fs)}:
+        if launched != {key: len(plan.Fs)}:
             raise AssertionError(f"({nb}, 2^18) {name} launched {launched}")
         k_ms = time_cuda(lambda: fn(spec, plans, x))
         b_ms, b_by = transform_bound(dom, name, nb)
@@ -427,14 +483,14 @@ def parity_ntt_col_pass(records, dev):
 
             fields["plain_ms"] = time_cuda(plain_chain, reps=1, warmup=0)
             timing = (k_ms, fields["plain_ms"], b_ms, b_by)
-        say("time", kernel="ntt_col_pass", shape=f"({nb},2^18) {name} transform", ms=k_ms, **fields,
+        say("time", kernel=key, shape=f"({nb},2^18) {name} transform", ms=k_ms, **fields,
             bound_ms=b_ms, bound_by=b_by, share=round(b_ms / k_ms, 3), launches=launched)
         del x
     torch.cuda.empty_cache()
 
     k_ms, p_ms, b_ms, b_by = timing
-    records["ntt_col_pass"] = dict(
-        name="ntt_col_pass", route="cuda", source="zkt_plonk_tpu_torch/csrc/ntt_col_pass.cu",
+    records[key] = dict(
+        name=key, route="cuda", source="zkt_plonk_tpu_torch/csrc/ntt_col_pass.cu",
         replaces="zkt_plonk_tpu/ops/ntt_mr.py:428", max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
@@ -443,23 +499,28 @@ def parity_ntt_col_pass(records, dev):
 _SRS = {}
 
 
-def srs_1024(dev):
+def srs_1024(dev, curve="bn254"):
     """1024 SRS points on the card (affine-normalized, Z = 1) and their ck."""
-    if dev not in _SRS:
+    if (dev, curve) not in _SRS:
         from zkt_plonk_tpu_torch.commitment import kzg
         from zkt_plonk_tpu_torch.curves import make_context
 
-        _SRS[dev] = kzg.setup(make_context("bn254"), max_degree=1023, tau=31337, device=dev)[0]
-    return _SRS[dev]
+        _SRS[dev, curve] = kzg.setup(make_context(curve), max_degree=1023, tau=31337, device=dev)[0]
+    return _SRS[dev, curve]
 
 
-def parity_ec_add(records, dev):
+def parity_ec_add(records, dev, curve="bn254", record=True):
+    """K4 on 2^16 pairs of one curve's points: ``ec_add_complete`` on BN254
+    (L = 16), ``ec_add_complete/L24`` on the BLS12 curves (3b = 12 and 3)."""
+    from zkt_plonk_tpu_torch import _cuda
     from zkt_plonk_tpu_torch.curves import curve_host as ch
     from zkt_plonk_tpu_torch.ops import ec, ec_cuda
 
-    ck = srs_1024(dev)
+    ck = srs_1024(dev, curve)
     ctx = ck.ctx
     spec = ctx.fq_spec
+    L = spec.n_limbs
+    key = _cuda.instance("ec_add_complete", L)
     pts = ck.powers  # (1024, 3, L), affine-normalized (Z = 1)
     b3 = ck.b3
     n = 1 << 16
@@ -480,7 +541,7 @@ def parity_ec_add(records, dev):
         err = max_abs_err(got, plain)
         worst = max(worst, err)
         if err != 0:
-            raise AssertionError(f"ec_add_complete disagrees on {label} (max_abs_err {err})")
+            raise AssertionError(f"{key} on {curve} disagrees on {label} (max_abs_err {err})")
         sample = list(range(8)) + list(range(1000, 1200))
         ah = ec.to_affine_host(spec, a[sample])
         bh = ec.to_affine_host(spec, b[sample])
@@ -491,29 +552,35 @@ def parity_ec_add(records, dev):
                           None if y is None else (Fq(y[0]), Fq(y[1])))
             want = None if want is None else (int(want[0]), int(want[1]))
             if want != g:
-                raise AssertionError(f"ec_add_complete wrong against host affine add ({label})")
+                raise AssertionError(f"{key} on {curve} wrong against host affine add ({label})")
         # second round: the first round's projective outputs (Z != 1)
         a, b = got, P.flip(0).contiguous()
+    before = _cuda.launches[key]
     k_ms = time_cuda(lambda: ec.add(spec, b3, P, Q))
+    if _cuda.launches[key] == before:
+        raise AssertionError(f"ec.add on {curve} did not launch {key}")
     p_ms = time_cuda(lambda: ec_cuda.add_plain(spec, b3.limbs, P, Q), reps=3, warmup=1)
-    b_ms, b_by = bound_ms(3 * 3 * ELEM_BYTES * n, n * EC_ADD_OPS)
-    say("parity", kernel="ec_add_complete", shape="2^16 pairs", ms=k_ms, plain_ms=p_ms,
+    b_ms, b_by = bound_ms(3 * 3 * 4 * L * n, n * (EC_ADD_OPS if L == 16 else EC_ADD_OPS_24))
+    say("parity", kernel=key, curve=curve, b3=b3.value, shape="2^16 pairs", ms=k_ms, plain_ms=p_ms,
         bound_ms=b_ms, bound_by=b_by, max_abs_err=worst)
-    records["ec_add_complete"] = dict(
-        name="ec_add_complete", route="cuda",
+    if not record:
+        return
+    records[key] = dict(
+        name=key, route="cuda",
         source="zkt_plonk_tpu_torch/csrc/ec_add_complete.cu",
         replaces="zkt_plonk_tpu/ops/ec_pallas.py:99", max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
 
 
-def _acc_bound(n, BW, G, K):
+def _acc_bound(n, BW, G, K, L=16):
     """K4a's bound: every one of the BW * n_pad steps is one complete add;
     bytes: the points and digits read once and the bucket tensor written
     once."""
     n_pad = -(-n // G) * G
-    nbytes = 3 * ELEM_BYTES * n + 2 * BW * n_pad + 3 * ELEM_BYTES * G * BW * K
-    return bound_ms(nbytes, BW * n_pad * EC_ADD_OPS)
+    elem = 4 * L
+    nbytes = 3 * elem * n + 2 * BW * n_pad + 3 * elem * G * BW * K
+    return bound_ms(nbytes, BW * n_pad * (EC_ADD_OPS if L == 16 else EC_ADD_OPS_24))
 
 
 def _host_row(ck, pts_host, digits, g, bw, G, K):
@@ -532,13 +599,18 @@ def _host_row(ck, pts_host, digits, g, bw, G, K):
     return [None if r is None else (int(r[0]), int(r[1])) for r in rows]
 
 
-def parity_ec_bucket_accumulate(records, dev, log_n=18):
+def parity_ec_bucket_accumulate(records, dev, curve="bn254", log_n=18):
+    """K4a at n = 2^18 + 4 on one curve's points: ``ec_bucket_accumulate``
+    on BN254 (L = 16), ``ec_bucket_accumulate/L24`` on BLS12-381."""
+    from zkt_plonk_tpu_torch import _cuda
     from zkt_plonk_tpu_torch.fields.limbs import ints_to_array
     from zkt_plonk_tpu_torch.ops import ec, msm
 
-    ck = srs_1024(dev)
+    ck = srs_1024(dev, curve)
     ctx = ck.ctx
     spec = ctx.fq_spec
+    L = spec.n_limbs
+    key = _cuda.instance("ec_bucket_accumulate", L)
     r = ctx.curve.fr.modulus
     fr_bits = r.bit_length()
     top = int(ctx.fr_spec.modulus_limbs[-1])
@@ -570,27 +642,34 @@ def parity_ec_bucket_accumulate(records, dev, log_n=18):
     pts = ck.powers[torch.arange(n, device=dev) % 1024].contiguous()
     S = torch.from_numpy(S_np).to(dev)
     digits = msm.digit_rows(S, c, fr_bits, G)
+    before = _cuda.launches[key]
     got = msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c)
+    if _cuda.launches[key] != before + 1:
+        raise AssertionError(f"bucket_accumulate on {curve} did not launch {key}")
+    # the plain version once (seconds at this size), timed by CUDA events
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     plain = msm.bucket_accumulate_plain(spec, ck.b3, pts, digits, G, c)
-    torch.cuda.synchronize()
+    end.record()
+    end.synchronize()
+    p_ms = start.elapsed_time(end)
     err = max_abs_err(got, plain)
     if err != 0:
-        raise AssertionError(f"ec_bucket_accumulate disagrees (max_abs_err {err})")
+        raise AssertionError(f"{key} disagrees (max_abs_err {err})")
     W = digits.shape[0] // B
     pts_host = ec.to_affine_host(spec, ck.powers)
     pts_host = [pts_host[i % 1024] for i in range(n)]
     digits_h = digits.cpu()
     for g, bw in ((0, 0), (3 % G, W + 5), (9 % G, 2 * W + 1), (G - 1, 3 * W - 1)):
         if ec.to_affine_host(spec, got[g, bw]) != _host_row(ck, pts_host, digits_h, g, bw, G, K):
-            raise AssertionError(f"ec_bucket_accumulate row ({g}, {bw}) wrong against host adds")
+            raise AssertionError(f"{key} row ({g}, {bw}) wrong against host adds")
     k_ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c), reps=3, warmup=1)
-    p_ms = time_cuda(lambda: msm.bucket_accumulate_plain(spec, ck.b3, pts, digits, G, c),
-                     reps=1, warmup=0)
-    b_ms, b_by = _acc_bound(n, B * W, G, K)
-    say("parity", kernel="ec_bucket_accumulate", shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", ms=k_ms,
+    b_ms, b_by = _acc_bound(n, B * W, G, K, L)
+    say("parity", kernel=key, curve=curve, shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", ms=k_ms,
         plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-    records["ec_bucket_accumulate"] = dict(
-        name="ec_bucket_accumulate", route="cuda",
+    records[key] = dict(
+        name=key, route="cuda",
         source="zkt_plonk_tpu_torch/csrc/ec_bucket_accumulate.cu",
         replaces="zkt_plonk_tpu/ops/ec_pallas.py:99", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -602,8 +681,8 @@ def parity_ec_bucket_accumulate(records, dev, log_n=18):
         digits = msm.digit_rows(torch.from_numpy(scalars(B)).to(dev), c, fr_bits, G)
         ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c),
                        reps=3, warmup=1)
-        b_ms, b_by = _acc_bound(n, digits.shape[0], G, K)
-        say("time", kernel="ec_bucket_accumulate", shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", ms=ms,
+        b_ms, b_by = _acc_bound(n, digits.shape[0], G, K, L)
+        say("time", kernel=key, curve=curve, shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", ms=ms,
             bound_ms=b_ms, bound_by=b_by)
         del digits
     torch.cuda.empty_cache()
@@ -645,13 +724,23 @@ def golden(dev):
     say("golden", bytes=len(blob), sha256=digest, seconds=round(time.perf_counter() - t0, 3))
 
 
-def withdraw(dev, height=48, notes=3, table_size=1024):
+def withdraw(dev, height=48, notes=3, table_size=1024, curve="bn254"):
+    """The withdraw circuit at n = 2^18 on one curve: BN254 + KZG with the
+    Ethereum transcript (phase ``withdraw``), or BLS12-381 + KZG with Merlin
+    and 48-byte coordinates (phase ``bls12_withdraw``: K3 and K2 in their
+    strict mode, K4 and K4a at L = 24)."""
     from zkt_plonk_tpu_torch import _cuda
     from zkt_plonk_tpu_torch.circuits.withdraw_instance import build
     from zkt_plonk_tpu_torch.commitment import kzg
     from zkt_plonk_tpu_torch.cs import ConstraintSystem
     from zkt_plonk_tpu_torch.plonk import ZKTPlonk
     from zkt_plonk_tpu_torch.proof_system.proof import VerificationError
+    from zkt_plonk_tpu_torch.transcript import EthereumTranscript
+    from zkt_plonk_tpu_torch.transcript.merlin import MerlinTranscript
+
+    phase = "withdraw" if curve == "bn254" else "bls12_withdraw"
+    transcript = EthereumTranscript if curve == "bn254" else (
+        lambda label: MerlinTranscript(label, coord_bytes=48))
 
     def clock(t0):
         if dev.type == "cuda":
@@ -659,12 +748,13 @@ def withdraw(dev, height=48, notes=3, table_size=1024):
         return round(time.perf_counter() - t0, 3)
 
     t0 = time.perf_counter()
-    circuit, table, pub_inputs = build(height, notes, table_size)
-    inst = ZKTPlonk(curve="bn254", table=table, device=dev)
+    circuit, table, pub_inputs = build(height, notes, table_size, curve=curve)
+    inst = ZKTPlonk(curve=curve, transcript_factory=transcript, table=table, device=dev)
+    ntt_key = "ntt_col_pass" if curve == "bn254" else "ntt_col_pass/strict"
     cs = ConstraintSystem(inst.p, setup=True, lookup_table=table)
     circuit.synthesize(cs)
     bound = cs.circuit_bound()
-    say("withdraw", height=height, notes=notes, table=table_size, gates=cs.n, n=bound,
+    say(phase, curve=curve, height=height, notes=notes, table=table_size, gates=cs.n, n=bound,
         build_seconds=clock(t0))
 
     if dev.type == "cuda":
@@ -684,7 +774,7 @@ def withdraw(dev, height=48, notes=3, table_size=1024):
         out = inner(spec, plan, x)
         delta = {k: v - before[k] for k, v in _cuda.launches.items() if v != before[k]}
         per_transform[f"D={len(plan.Fs)}:" + ",".join(f"{k}={v}" for k, v in delta.items())] += 1
-        if delta != {"ntt_col_pass": len(plan.Fs)}:
+        if delta != {ntt_key: len(plan.Fs)}:
             bad.append(delta)
         return out
 
@@ -715,9 +805,9 @@ def withdraw(dev, height=48, notes=3, table_size=1024):
     else:
         raise AssertionError("verification passed with a tampered public input")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
-    say("withdraw", srs_setup_s=srs_s, srs_points=4 * bound + 1, compile_s=compile_s,
+    say(phase, srs_setup_s=srs_s, srs_points=4 * bound + 1, compile_s=compile_s,
         prove_cold_s=cold_s, prove_warm_s=warm_s, verify_s=verify_s, tamper=tamper,
-        peak_device_gb=round(peak_gb, 2))
+        peak_device_gb=round(peak_gb, 2), nvidia_smi=f"'{nvidia_smi_line()}'")
     say("launches", **launches)
     say("ntt", transforms=sum(per_transform.values()), launches_per_transform=dict(per_transform))
     if bad:
@@ -780,8 +870,8 @@ def cli_phase(dev, eth_prove_s):
     from zkt_plonk_tpu_torch.proof_system.setup import extend_prover_key_from_pk
     from zkt_plonk_tpu_torch.utils import serialize as ser
 
-    launches = {k: 0 for k in _cuda.KERNELS}
-    proof_launches = {k: 0 for k in _cuda.KERNELS}
+    launches = {k: 0 for k in _cuda.INSTANCES}
+    proof_launches = {k: 0 for k in _cuda.INSTANCES}
     prove_s = []
     inner_prove = ZKTPlonk.prove
 
@@ -883,11 +973,157 @@ def cli_phase(dev, eth_prove_s):
     if leaves != 7:
         raise AssertionError(f"tree holds {leaves} leaves after 5 deposits and 2 withdraws")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    say("cli", transcript="merlin", prove_s=prove_s, ethereum_prove_cold_warm_s=list(eth_prove_s),
+    say("cli", transcript="merlin", prove_s=prove_s, ethereum_prove_cold_warm_s=list(eth_prove_s or ()),
         reloaded_proof="verified", tamper=tamper, tree_leaves=leaves,
         peak_device_gb=round(peak_gb, 2), nvidia_smi=f"'{nvidia_smi_line()}'")
     say("cli", proof_launches=json.dumps(proof_launches))
     return launches
+
+
+class SmallCircuit:
+    """``tests/test_e2e.py:SmallCircuitDef``: c = a * b public, a in the table."""
+
+    def synthesize(self, cs):
+        from zkt_plonk_tpu_torch.cs import lt
+
+        a = cs.assign_variable(2)
+        b = cs.assign_variable(3)
+        c = cs.mul_gate(lt(a), lt(b))
+        cs.set_variable_public(lt(c))
+        cs.lookup_constrain(lt(a))
+
+
+# tests/test_e2e.py:101-161, (scheme, curve, tau, seed): IPA on the three
+# curves (max_degree 32), KZG on the two BLS12 curves (max_degree 64);
+# BN254 + KZG is the golden proof of phase 4
+MATRIX = (
+    ("ipa", "bn254", None, 11),
+    ("ipa", "bls12_381", None, 14),
+    ("ipa", "bls12_377", None, 15),
+    ("kzg", "bls12_381", 24680, 12),
+    ("kzg", "bls12_377", 13579, 13),
+)
+
+
+def proof_fields(proof):
+    """Every field of a proof as plain ints, tuples and lists."""
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(proof):
+        v = getattr(proof, f.name)
+        if f.name == "evaluations":
+            out[f.name] = dataclasses.astuple(v)
+        elif hasattr(v, "a_final"):  # an IPA opening
+            out[f.name] = (list(v.l_points), list(v.r_points), v.a_final)
+        else:
+            out[f.name] = None if v is None else (int(v[0]), int(v[1]))
+    return out
+
+
+def matrix(dev):
+    """The reference's curve x scheme matrix beside BN254 + KZG: each
+    configuration proves on the card and on the CPU (the plain versions),
+    the two proofs equal field for field, the card's verifies and fails its
+    tamper probes.  Returns the launches of the card's compiles and proofs."""
+    import copy
+
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.commitment import ipa, kzg
+    from zkt_plonk_tpu_torch.cs import LookupTable
+    from zkt_plonk_tpu_torch.curves import make_context
+    from zkt_plonk_tpu_torch.plonk import ZKTPlonk
+    from zkt_plonk_tpu_torch.proof_system.proof import VerificationError
+    from zkt_plonk_tpu_torch.transcript import EthereumTranscript
+    from zkt_plonk_tpu_torch.transcript.merlin import MerlinTranscript
+    from zkt_plonk_tpu_torch.utils import arkserde
+
+    launches = {k: 0 for k in _cuda.INSTANCES}
+    for scheme, curve, tau, seed in MATRIX:
+        ctx = make_context(curve)
+        transcript = EthereumTranscript if curve == "bn254" else (
+            lambda label: MerlinTranscript(label, coord_bytes=48))
+        if scheme == "ipa":
+            ck, _ = ipa.setup(ctx, max_degree=32, device=dev)
+            ck_cpu = ipa.make_key(ctx, ck.gens, ck.u, device="cpu")
+            keys = {"card": (ck, ck), "cpu": (ck_cpu, ck_cpu)}
+        else:
+            keys = {"card": kzg.setup(ctx, max_degree=64, tau=tau, device=dev),
+                    "cpu": kzg.setup(ctx, max_degree=64, tau=tau, device="cpu")}
+        proofs, secs = {}, {}
+        for where, (ck, cvk) in keys.items():
+            inst = ZKTPlonk(curve=curve, transcript_factory=transcript,
+                            table=LookupTable([1, 2, 5], size=4),
+                            device=dev if where == "card" else "cpu")
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            compiled = inst.compile(SmallCircuit(), ck, cvk)
+            proofs[where] = inst.prove(compiled, SmallCircuit(), random.Random(seed))
+            torch.cuda.synchronize()
+            secs[where] = round(time.perf_counter() - t0, 3)
+            if where == "card":
+                for k, v in _cuda.launches.items():
+                    launches[k] += v
+                card = (inst, compiled)
+        inst, compiled = card
+        proof = proofs["card"]
+        if proof_fields(proof) != proof_fields(proofs["cpu"]):
+            raise AssertionError(f"{scheme} {curve}: the card's proof differs from the CPU's")
+        inst.verify(compiled, proof, [6])
+        tampered = copy.deepcopy(proof)
+        tampered.evaluations.a = (tampered.evaluations.a + 1) % inst.p
+        for label, pf, pub in (("public input", proof, [7]), ("evaluation", tampered, [6])):
+            try:
+                inst.verify(compiled, pf, pub)
+            except (VerificationError, AssertionError):
+                pass
+            else:
+                raise AssertionError(f"{scheme} {curve}: verified with a tampered {label}")
+        fields = {}
+        if scheme == "kzg":
+            blob = arkserde.proof_to_bytes(proof, ctx.curve.fq.modulus, ctx.curve.fr.modulus)
+            digest = hashlib.sha256(blob).hexdigest()
+            if digest != MATRIX_KZG_SHA256[curve]:
+                raise AssertionError(f"kzg {curve}: proof sha256 {digest}")
+            fields = dict(bytes=len(blob), sha256=digest[:16])
+        say("matrix", scheme=scheme, curve=curve, seed=seed, card_s=secs["card"], cpu_s=secs["cpu"],
+            equal_fields=True, verified=True, tamper="raised", **fields)
+    return launches
+
+
+def ipa_commits(dev):
+    """IPA commits on the card (``ipa.commit(..., device=True)``, the MSM's
+    kernels) against the same commit through the plain versions on the CPU
+    (m = 2^12 on BN254, 2^10 on BLS12-381) and against the host MSM at
+    m = 2^8."""
+    from zkt_plonk_tpu_torch.commitment import ipa
+
+    for curve, m in (("bn254", 1 << 12), ("bls12_381", 1 << 10)):
+        t0 = time.perf_counter()
+        ck, _ = ipa.setup(curve, max_degree=m - 1, device=dev)
+        gens_s = round(time.perf_counter() - t0, 3)
+        ck_cpu = ipa.make_key(ck.ctx, ck.gens, ck.u, device="cpu")
+        r = ck.ctx.curve.fr.modulus
+        rng = random.Random(m)
+        coeffs = [rng.randrange(r) for _ in range(m)]
+        coeffs[:3] = [0, 1, r - 1]
+        secs = {}
+        got = {}
+        for label, key, cs, dev_commit in (("card", ck, coeffs, True), ("cpu", ck_cpu, coeffs, True),
+                                           ("card_256", ck, coeffs[:256], True),
+                                           ("host_256", ck, coeffs[:256], False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pt = ipa.commit(key, cs, device=dev_commit)
+            secs[label] = round(time.perf_counter() - t0, 3)
+            got[label] = None if pt is None else (int(pt[0]), int(pt[1]))
+        if got["card"] != got["cpu"] or got["card_256"] != got["host_256"]:
+            raise AssertionError(f"IPA commit on {curve}: card {got['card']} / CPU {got['cpu']}, "
+                                 f"m = 256: card {got['card_256']} / host {got['host_256']}")
+        say("ipa_commit", curve=curve, m=m, generators_s=gens_s, card_s=secs["card"],
+            plain_cpu_s=secs["cpu"], card_256_s=secs["card_256"], host_msm_256_s=secs["host_256"],
+            equal=True)
 
 
 def sass_mix() -> None:
@@ -916,7 +1152,42 @@ def sass_mix() -> None:
                 alu=sum(v for k, v in ops.items() if k.startswith(alu)))
 
 
+def ptxas_report(name: str):
+    """(function, registers, spill stores, spill loads) of each kernel in
+    ``name``'s build log (nvcc -Xptxas -v)."""
+    import re
+
+    from zkt_plonk_tpu_torch import _cuda
+
+    out, fn, spills = [], None, (0, 0)
+    with open(os.path.join(_cuda.BUILD_DIR, f"{name}.log")) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = re.sub(r"^_ZN2zk\d+", "", m.group(1))[:48]
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                out.append((fn, int(m.group(1)), *spills))
+                fn, spills = None, (0, 0)
+    return out
+
+
+PHASES = ("parity", "golden", "withdraw", "poseidon", "cli", "bls12_withdraw", "matrix")
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of %(default)s; a subset prints no result line")
+    args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
@@ -930,43 +1201,71 @@ def main() -> int:
         nvidia_smi=f"'{smi}'", torch=torch.__version__, cuda=torch.version.cuda)
 
     build_s = _cuda.build_all()
-    regs = []
-    for name in _cuda.KERNELS:
-        with open(os.path.join(_cuda.BUILD_DIR, f"{name}.log")) as f:
-            lines = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-        regs.append(f"{name}:{'|'.join(lines)[-400:]}")
     say("build", seconds=round(build_s, 3), kernels=len(_cuda.KERNELS))
-    for r in regs:
-        say("ptxas", info=r)
+    for name in _cuda.KERNELS:
+        for fn, regs, st, ld in ptxas_report(name):
+            say("ptxas", kernel=name, fn=fn, registers=regs, spill_stores=st, spill_loads=ld)
     sass_mix()
 
     records = {}
-    parity_fp_binop(records, dev)
-    parity_fp_pow_chain(records, dev)
-    parity_ntt_col_pass(records, dev)
-    parity_ec_add(records, dev)
-    parity_ec_bucket_accumulate(records, dev)
+    if "parity" in phases:
+        from zkt_plonk_tpu_torch.fields import BLS12_381_FR, BN254_FR
 
-    golden(dev)
-    launches, eth_prove_s = withdraw(dev)
-    for name, path_launches in (("withdraw", dict(launches)), ("poseidon", poseidon(dev)),
-                                ("cli", cli_phase(dev, eth_prove_s))):
-        say("launches", path=name, **path_launches)
-        if name != "withdraw":
-            for k, v in path_launches.items():
-                launches[k] += v
-    missing = [k for k in _cuda.KERNELS if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        parity_fp_binop(records, dev)
+        parity_fp_pow_chain(records, dev)
+        parity_ntt_col_pass(records, dev, BN254_FR, "ntt_col_pass")
+        parity_ntt_col_pass(records, dev, BLS12_381_FR, "ntt_col_pass/strict")
+        parity_ec_add(records, dev)
+        parity_ec_add(records, dev, "bls12_381")
+        parity_ec_add(records, dev, "bls12_377", record=False)
+        parity_ec_bucket_accumulate(records, dev)
+        parity_ec_bucket_accumulate(records, dev, "bls12_381")
+        say("total", after="parity", wall_s=round(time.perf_counter() - T_START, 1))
+
+    # the main paths, each counted from zero around its own run
+    paths = {}
+    eth_prove_s = None
+    if "golden" in phases:
+        golden(dev)
+    if "withdraw" in phases:
+        paths["withdraw"], eth_prove_s = withdraw(dev)
+    if "poseidon" in phases:
+        paths["poseidon"] = poseidon(dev)
+    if "cli" in phases:
+        paths["cli"] = cli_phase(dev, eth_prove_s)
+    if "bls12_withdraw" in phases:
+        paths["bls12_withdraw"], _ = withdraw(dev, curve="bls12_381")
+    if "matrix" in phases:
+        _cuda.reset_launches()
+        ipa_commits(dev)
+        paths["matrix"] = matrix(dev)
+    launches = {k: 0 for k in _cuda.INSTANCES}
+    for name, path_launches in paths.items():
+        say("launches", path=name, **{k: v for k, v in path_launches.items() if v})
+        for k, v in path_launches.items():
+            launches[k] += v
     say("total", wall_s=round(time.perf_counter() - T_START, 1))
+    if phases != set(PHASES):
+        print("chip_smoke: partial run of phases " + ",".join(sorted(phases)), flush=True)
+        return 0
+
+    # every instance lies on a main path, except K1 at L = 24: the BLS12 base
+    # fields' arithmetic on the card is the EC kernels' own
+    off_path = {"fp_binop/L24": "on no main path: the BLS12 base-field arithmetic of the "
+                                "main paths runs inside K4 and K4a"}
+    missing = [k for k in _cuda.INSTANCES if launches[k] <= 0 and k not in off_path]
+    if missing:
+        raise AssertionError(f"kernel instances not launched on the main paths: {missing}")
 
     kernels = []
-    for name in _cuda.KERNELS:
+    for name in _cuda.INSTANCES:
         rec = records[name]
         rec["launches"] = launches[name]
         kernels.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        if name in off_path and launches[name] == 0:
+            kernels[-1]["note"] = off_path[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,8 @@
 (f) with ``ZKT_PLONK_TIMING`` on, the prover prints its seven sections
     and proves the same bytes;
 and the port imports with neither ``jax`` nor ``zkt_plonk_tpu`` loaded,
-as a whole and module by module for the CLI's modules.
+as a whole and module by module for the CLI's modules, the IPA, the
+scheme dispatch and the withdraw instance.
 """
 
 import copy
@@ -229,6 +230,7 @@ def test_merlin_proof_bytes_match_jax():
 
 @pytest.mark.parametrize("module", [
     "cli", "config", "utils.serialize", "transcript.merlin", "hashing.poseidon.device",
+    "commitment.ipa", "commitment.scheme", "circuits.withdraw_instance",
 ])
 def test_cli_modules_import_without_jax(module):
     code = (

@@ -13,8 +13,10 @@ JAX package.
   with 0, 1, r - 1 and a negative-zero digit, and on scalars that hit one
   bucket on consecutive steps; a batch of two against two single calls;
   and the bucket sums at G = 16 against the reference's;
-* the wrappers' checks that need no card: digit codes out of range, and
-  the moduli the kernels' word arithmetic can take.
+* the wrappers' checks that need no card: digit codes out of range, the
+  moduli the kernels' word arithmetic can take (at L = 16 and, for the
+  BLS12 base fields, L = 24) and the reduction mode of K2 and K3, and the
+  names of the per-instance launch counters.
 """
 
 import os
@@ -35,7 +37,9 @@ from zkt_plonk_tpu_torch.commitment import kzg
 from zkt_plonk_tpu_torch.curves import make_context
 from zkt_plonk_tpu_torch.fields import make_spec
 from zkt_plonk_tpu_torch.fields.limbs import ints_to_array
-from zkt_plonk_tpu_torch.fields.params import BLS12_381_FR, BN254_FQ, BN254_FR, FieldParams
+from zkt_plonk_tpu_torch.fields.params import (
+    BLS12_377_FQ, BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR, FieldParams,
+)
 from zkt_plonk_tpu_torch.ops import ec, msm
 
 
@@ -233,18 +237,36 @@ SECP256K1_FQ = FieldParams(name="secp256k1_fq", modulus=2**256 - 2**32 - 977, ge
 @pytest.mark.parametrize(
     "params, field_ok, ec_ok",
     [(BN254_FQ, True, True), (BN254_FR, True, True), (BLS12_381_FR, True, False),
-     (SECP256K1_FQ, False, False)],
+     (SECP256K1_FQ, False, False), (BLS12_381_FQ, True, True), (BLS12_377_FQ, True, True)],
     ids=lambda v: getattr(v, "name", None),
 )
 def test_kernel_constants_check_the_modulus(params, field_ok, ec_ok):
-    """The field kernels need 2p < R = 2^256, the EC kernels' lazy
-    reduction 4p < R; a modulus without that headroom is refused before
-    any launch."""
+    """The field kernels need 2p < R = 2^(16 L), the EC kernels' lazy
+    reduction 4p < R (BN254's Fq at L = 16, the BLS12 base fields at
+    L = 24); a modulus without that headroom is refused before any launch.
+    K2 and K3 run lazily where 4p < R and strictly where only 2p < R."""
     spec = make_spec(params)
+    nw = spec.n_limbs // 2
     for fn, ok in ((_cuda.field_consts, field_ok), (_cuda.ec_field_consts, ec_ok)):
         if ok:
             words = list(fn(spec))
-            assert sum(w << (32 * i) for i, w in enumerate(words[:8])) == params.modulus
+            assert len(words) == 5 * nw + 1
+            assert sum(w << (32 * i) for i, w in enumerate(words[:nw])) == params.modulus
         else:
             with pytest.raises(ValueError, match="need"):
                 fn(spec)
+    if field_ok:
+        strict, words = _cuda.reduction_consts(spec)
+        assert strict == (not ec_ok) and list(words) == list(_cuda.field_consts(spec))
+    else:
+        with pytest.raises(ValueError, match="need"):
+            _cuda.reduction_consts(spec)
+
+
+def test_launch_counters_name_each_instance():
+    assert _cuda.instance("ec_add_complete") == "ec_add_complete"
+    assert _cuda.instance("ec_bucket_accumulate", 24) == "ec_bucket_accumulate/L24"
+    assert _cuda.instance("ntt_col_pass", strict=True) == "ntt_col_pass/strict"
+    assert set(_cuda.launches) == set(_cuda.INSTANCES)
+    with pytest.raises(ValueError, match="no instance"):
+        _cuda.instance("ntt_col_pass", 24)

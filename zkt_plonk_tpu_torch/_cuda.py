@@ -6,8 +6,12 @@ under ``build/torch_kernels/`` at the repository root, at first use; all
 sources build in parallel.  The libraries are loaded with ``ctypes``.
 Nothing here runs at import time.
 
-``launches`` holds one plain integer per kernel: a wrapper adds one where it
-launches its kernel, and nowhere else.
+``launches`` holds one plain integer per kernel instance (``INSTANCES``):
+a wrapper adds one to the instance it launches, where it launches it, and
+nowhere else.  An instance is a kernel at one limb count and reduction
+mode: ``ec_add_complete`` is K4 at L = 16, ``ec_add_complete/L24`` K4 at
+L = 24 (the BLS12 base fields), ``ntt_col_pass/strict`` K3 in its strict
+mode (``reduction_consts``).
 """
 
 from __future__ import annotations
@@ -34,7 +38,14 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# the instances beyond each kernel's L = 16 lazy one
+EXTRA_INSTANCES = (
+    "fp_binop/L24", "fp_pow_chain/strict", "ntt_col_pass/strict", "ec_add_complete/L24",
+    "ec_bucket_accumulate/L24",
+)
+INSTANCES = KERNELS + EXTRA_INSTANCES
+
+launches: Dict[str, int] = {name: 0 for name in INSTANCES}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -43,6 +54,14 @@ _libs: Dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def instance(kernel: str, L: int = 16, strict: bool = False) -> str:
+    """The launch counter of ``kernel`` at L limbs in the given mode."""
+    name = kernel + ("/L24" if L == 24 else "") + ("/strict" if strict else "")
+    if name not in launches:
+        raise ValueError(f"{kernel} has no instance for L = {L}, strict = {strict}")
+    return name
 
 
 def require_cuda(device) -> "torch.device":
@@ -133,8 +152,10 @@ def _declare(name: str, cdll: ctypes.CDLL) -> ctypes.CDLL:
     U8P = ctypes.POINTER(ctypes.c_ubyte)
     sigs = {
         "fp_binop": ("zk_fp_binop", [I, I, P, P, P, LL, I, LLP, LLP, LLP, UP, P]),
-        "fp_pow_chain": ("zk_fp_pow_chain", [I, P, P, LL, I, I, I, I, U16P, U8P, UP, P]),
-        "ntt_col_pass": ("zk_ntt_fused_pass", [I, P, P, I, LL, LL, I, I, I, I, P, P, P, UP, P]),
+        "fp_pow_chain": ("zk_fp_pow_chain", [I, P, P, LL, I, I, I, I, U16P, U8P, I, UP, P]),
+        "ntt_col_pass": (
+            "zk_ntt_fused_pass", [I, P, P, I, LL, LL, I, I, I, I, P, P, P, I, UP, P]
+        ),
         "ec_add_complete": (
             "zk_ec_add_complete", [I, P, P, P, LL, I, LLP, LLP, LLP, I, UP, P]
         ),
@@ -182,7 +203,9 @@ def field_consts(spec):
 
 def ec_field_consts(spec):
     """``field_consts`` for the EC kernels K4 and K4a, whose lazy reduction
-    (``csrc/ec.cuh``: values in [0, 2p) inside the formula) needs 4p < R."""
+    (``csrc/ec.cuh``: values in [0, 2p) inside the formula) needs 4p < R.
+    It holds at L = 16 for BN254's Fq (p < 0.19 R) and at L = 24 for the
+    BLS12 base fields (0.102 R and 0.007 R)."""
     bits = 16 * spec.n_limbs
     if 4 * spec.modulus >= 1 << bits:
         raise ValueError(
@@ -190,6 +213,16 @@ def ec_field_consts(spec):
             f"p has {spec.modulus.bit_length()} bits"
         )
     return field_consts(spec)
+
+
+def reduction_consts(spec):
+    """(strict, consts) for K2 and K3: their lazy mode (values below 2p)
+    where 4p < R, else their strict mode (every value below p, every
+    product and sum brought below p), which needs only 2p < R: BLS12-381's
+    Fr (p = 0.453 R).  ``field_consts`` refuses a field with 2p >= R."""
+    if 4 * spec.modulus < 1 << (16 * spec.n_limbs):
+        return False, ec_field_consts(spec)
+    return True, field_consts(spec)
 
 
 def ll_array(vals):

@@ -2,6 +2,13 @@
 ``bin/src/instance.rs:41`` default: HEIGHT=48, NOTE_INPUTS=3,
 TABLE_SIZE=1024, Poseidon BN254 width 4), with deterministic data.
 
+``curve="bls12_381"`` builds the same circuit over BLS12-381's scalar
+field, the shape of the reference ``bin`` built with its ``bls12-381``
+feature (``bin/src/instance.rs:7-15``): Poseidon width 4 with constants
+generated for that field by ``PoseidonConstants.generate`` (8 full and 56
+partial rounds, as BN254's baked instance), and that field's modulus for
+the secrets and their inverses.
+
 Same construction as ``scripts/bench_withdraw.py:build`` of the JAX package:
 notes with random identifiers, secrets and amounts are inserted into a
 Merkle tree, and the circuit withdraws 120 from their sum.
@@ -12,18 +19,24 @@ from __future__ import annotations
 import random
 
 from ..cs import LookupTable
-from ..fields import BN254_FR
+from ..fields import BLS12_381_FR, BN254_FR
 from ..gadgets.merkle_tree import MerkleTree, MerkleTreeStore
-from ..hashing import Poseidon, bn254_constants
+from ..hashing import Poseidon, PoseidonConstants, bn254_constants
 from ..hashing.merkle import PoECircuit
 from .withdraw import WithdrawCircuit
 
-P = BN254_FR.modulus
 
-
-def build(height: int = 48, notes: int = 3, table_size: int = 1024, seed: int = 7):
+def build(height: int = 48, notes: int = 3, table_size: int = 1024, seed: int = 7,
+          curve: str = "bn254"):
     """Returns (circuit, lookup table, public inputs)."""
-    const = bn254_constants(4)
+    if curve == "bn254":
+        P = BN254_FR.modulus
+        const = bn254_constants(4)
+    elif curve == "bls12_381":
+        P = BLS12_381_FR.modulus
+        const = PoseidonConstants.generate(P, 4, 255)
+    else:
+        raise ValueError(f"no withdraw instance for curve {curve!r}")
     hasher = Poseidon(const, native=True)
     rng = random.Random(seed)
 

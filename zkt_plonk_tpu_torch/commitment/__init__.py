@@ -1,0 +1,3 @@
+from . import ipa, kzg
+from .ipa import CommitterKeyIPA, IPAProof
+from .kzg import CommitterKey, VerifierKeyKZG

@@ -121,19 +121,11 @@ class Committer:
 
     def __init__(self, ck: CommitterKey):
         self.ck = ck
-        self.fr_bits = ck.ctx.curve.fr.modulus.bit_length()
 
     def commit_many(self, polys) -> list:
         """polys: (B, m, L) tensor or list of (m, L).  Returns a list of host
         affine points.  All polys share one length (one window size)."""
-        stacked = polys if isinstance(polys, torch.Tensor) else torch.stack(list(polys))
-        m = stacked.shape[1]
-        ctx = self.ck.ctx
-        c = msm.msm_window_size(m)
-        totals = msm.msm_totals(
-            ctx.fq_spec, self.ck.b3, self.ck.powers[:m], stacked, self.fr_bits, c=c
-        ).cpu().numpy()
-        return [msm.fold_windows_host(ctx.fq_spec, ctx.Fq, totals[i], c) for i in range(len(totals))]
+        return msm.commit_rows(self.ck.ctx, self.ck.b3, self.ck.powers, polys)
 
 
 def divide_by_linear(

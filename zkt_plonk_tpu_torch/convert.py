@@ -5,7 +5,9 @@ polynomials, the extended prover key tables and the verifier key.  Handed
 over as numpy arrays and plain ints (the caller does the ``np.asarray``),
 ``compiled_circuit`` turns them into this package's keys on ``device``, so
 the port proves from the same state without recompiling: this system's
-counterpart of loading model weights.  Nothing here imports JAX.
+counterpart of loading model weights.  ``ipa_keys`` does the same for an
+IPA key, whose generators cost ~17 ms each to derive on the BLS12 curves.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .commitment import kzg
+from .commitment import ipa, kzg
 from .curves import make_context
 from .curves.tower import Fq2
 from .ops import ec
@@ -31,6 +33,22 @@ def _tensor(arr, device) -> torch.Tensor:
     if arr.dtype.kind not in "iu" or (arr.size and int(arr.max()) >= 1 << 16):
         raise ValueError("expected 16-bit limb arrays")
     return torch.from_numpy(np.ascontiguousarray(arr).astype(np.int32)).to(device)
+
+
+def ipa_keys(curve: str, gens, u, max_degree: int, device="cuda"):
+    """The port's IPA key pair (one self-dual key, as ``ipa.setup`` returns)
+    from a JAX ``CommitterKeyIPA``'s generators and ``u``, handed over as
+    (x, y) ints (None for the identity), with its ``max_degree``."""
+    dev = _cuda.require_cuda(device)
+    if max_degree != len(gens) - 1:
+        raise ValueError(f"max_degree {max_degree} for {len(gens)} generators")
+    ctx = make_context(curve)
+
+    def point(pt):
+        return None if pt is None else (ctx.Fq(int(pt[0])), ctx.Fq(int(pt[1])))
+
+    ck = ipa.make_key(ctx, [point(g) for g in gens], point(u), device=dev)
+    return ck, ck
 
 
 def compiled_circuit(

@@ -7,8 +7,9 @@
 // a*b + c*d, so each pair takes two wide products and ONE reduction (12
 // products, 9 reductions).
 //
-// Lazy reduction: the functions below need p < R/4 (BN254's Fq: p < 0.19 R;
-// the wrappers check it, _cuda.ec_field_consts).  Then a product of two
+// Lazy reduction: the functions below need p < R/4 (BN254's Fq: p < 0.19 R
+// at L = 16; the BLS12 base fields at L = 24: 0.102 R and 0.007 R; the
+// wrappers check it, _cuda.ec_field_consts).  Then a product of two
 // values below 2p, reduced without the final subtraction, is below
 // (2p)^2/R + p < 2p, so inside the formula values live in [0, 2p) and
 // additions reduce by 2p; a layer-3 sum of two such products is below

@@ -19,7 +19,10 @@
 // reduction each), and no Montgomery conversion of the six inputs: rcb_add
 // on canonical values returns the coordinates times R^-3, and one product
 // by R^4 per coordinate cancels it (15 products, 12 reductions).  3b is a
-// small integer (9 on BN254) applied by double-and-add.
+// small integer (9 on BN254, 12 on BLS12-381, 3 on BLS12-377) applied by
+// double-and-add.  Two instances: L = 16 (BN254's Fq, 8 words) and L = 24
+// (the BLS12 base fields, 12 words; their p/R is 0.102 and 0.007 at
+// R = 2^384, below BN254's 0.189, so ec.cuh's lazy bounds hold for them).
 #include "ec.cuh"
 
 namespace zk {
@@ -55,6 +58,17 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+template <int L>
+int launch_add(const int32_t* p, const int32_t* q, int32_t* out, long long n, const Bcast& bc,
+               int b3, const uint32_t* consts, cudaStream_t s) {
+  FieldConsts<L> fc = consts_from_host<L>(consts);
+  const int threads = 128;
+  long long want = (n + threads - 1) / threads;
+  int blocks = (int)(want < (1LL << 20) ? want : (1LL << 20));
+  ec_add_complete_kernel<L><<<blocks, threads, 0, s>>>(p, q, out, n, bc, b3, fc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace zk
 
 extern "C" int zk_ec_add_complete(int L, const void* p, const void* q, void* out, long long n,
@@ -65,15 +79,11 @@ extern "C" int zk_ec_add_complete(int L, const void* p, const void* q, void* out
   if (nd < 1 || nd > zk::MAXD || b3 < 0 || b3 > 255) return (int)cudaErrorInvalidValue;
   zk::Bcast bc = zk::bcast_from_host(nd, shape, sa, sb);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int threads = 128;
-  long long want = (n + threads - 1) / threads;
-  int blocks = (int)(want < (1LL << 20) ? want : (1LL << 20));
-  if (L == 16) {
-    zk::FieldConsts<16> fc = zk::consts_from_host<16>(reinterpret_cast<const uint32_t*>(consts));
-    zk::ec_add_complete_kernel<16><<<blocks, threads, 0, s>>>(
-        static_cast<const int32_t*>(p), static_cast<const int32_t*>(q),
-        static_cast<int32_t*>(out), n, bc, b3, fc);
-    return (int)cudaGetLastError();
-  }
+  const int32_t* pp = static_cast<const int32_t*>(p);
+  const int32_t* pq = static_cast<const int32_t*>(q);
+  int32_t* po = static_cast<int32_t*>(out);
+  const uint32_t* hc = reinterpret_cast<const uint32_t*>(consts);
+  if (L == 16) return zk::launch_add<16>(pp, pq, po, n, bc, b3, hc, s);
+  if (L == 24) return zk::launch_add<24>(pp, pq, po, n, bc, b3, hc, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -36,7 +36,9 @@
 //   are short next to its twelve products, and other warps cover them;
 // * __launch_bounds__(128) with no minimum of blocks: ptxas gives 142
 //   registers and no spills (3 blocks per SM); asking for 4 blocks makes
-//   it spill.
+//   it spill.  The L = 24 instance (the BLS12 base fields, 12 words) is the
+//   same code with half as many words again in every value: ptxas gives it
+//   240 registers and no spills, so 2 blocks fit on an SM (PERF.md).
 #include "ec.cuh"
 
 namespace zk {
@@ -130,27 +132,38 @@ __global__ void __launch_bounds__(ACC_THREADS)
   }
 }
 
+template <int L>
+int launch_accumulate(const int32_t* points, long long n, uint32_t* pm, const int16_t* digits,
+                      int32_t* out, int G, int BW, int K, long long S, int b3,
+                      const uint32_t* consts, cudaStream_t s) {
+  FieldConsts<L> fc = consts_from_host<L>(consts);
+  const long long n_pad = S * G;
+  long long want = (3 * n_pad + 255) / 256;
+  int blocks = (int)(want < (1LL << 20) ? want : (1LL << 20));
+  to_montgomery_kernel<L><<<blocks, 256, 0, s>>>(points, n, n_pad, pm, fc);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const long long rows = (long long)G * BW;
+  bucket_accumulate_kernel<L><<<(unsigned)((rows + ACC_THREADS - 1) / ACC_THREADS), ACC_THREADS,
+                                0, s>>>(pm, digits, out, G, BW, K, S, b3, fc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace zk
 
 extern "C" int zk_ec_bucket_accumulate(int L, const void* points, long long n, void* pm,
                                        const void* digits, void* out, int G, int BW, int K,
                                        long long S, int b3, const unsigned* consts,
                                        void* stream) {
-  if (L != 16 || n < 0 || G < 1 || BW < 1 || K < 1 || S < 1 || n > S * G || b3 < 0 || b3 > 255)
+  if (n < 0 || G < 1 || BW < 1 || K < 1 || S < 1 || n > S * G || b3 < 0 || b3 > 255)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  zk::FieldConsts<16> fc = zk::consts_from_host<16>(reinterpret_cast<const uint32_t*>(consts));
-  const long long n_pad = S * G;
-  long long want = (3 * n_pad + 255) / 256;
-  int blocks = (int)(want < (1LL << 20) ? want : (1LL << 20));
-  zk::to_montgomery_kernel<16><<<blocks, 256, 0, s>>>(
-      static_cast<const int32_t*>(points), n, n_pad, static_cast<uint32_t*>(pm), fc);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  const long long rows = (long long)G * BW;
-  zk::bucket_accumulate_kernel<16><<<(unsigned)((rows + zk::ACC_THREADS - 1) / zk::ACC_THREADS),
-                                     zk::ACC_THREADS, 0, s>>>(
-      static_cast<const uint32_t*>(pm), static_cast<const int16_t*>(digits),
-      static_cast<int32_t*>(out), G, BW, K, S, b3, fc);
-  return (int)cudaGetLastError();
+  const int32_t* pts = static_cast<const int32_t*>(points);
+  uint32_t* pmw = static_cast<uint32_t*>(pm);
+  const int16_t* dg = static_cast<const int16_t*>(digits);
+  int32_t* o = static_cast<int32_t*>(out);
+  const uint32_t* hc = reinterpret_cast<const uint32_t*>(consts);
+  if (L == 16) return zk::launch_accumulate<16>(pts, n, pmw, dg, o, G, BW, K, S, b3, hc, s);
+  if (L == 24) return zk::launch_accumulate<24>(pts, n, pmw, dg, o, G, BW, K, S, b3, hc, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -253,6 +253,21 @@ __device__ __forceinline__ void mont_mul(uint32_t r[L / 2], const uint32_t a[L /
   csub<L / 2>(r, r, fc.p);
 }
 
+// The two reduction modes of K2 and K3.  Lazy (STRICT = false, for 4p < R:
+// BN254's Fr, BLS12-377's Fr): values below 2p, products without the final
+// subtraction, sums reduced by 2p.  Strict (STRICT = true, for a field with
+// 2p < R <= 4p: BLS12-381's Fr, where (2p)^2 >= pR): values below p, every
+// product and sum brought below p.  mont_mode is the product of the mode.
+template <int L, bool STRICT>
+__device__ __forceinline__ void mont_mode(uint32_t r[L / 2], const uint32_t a[L / 2],
+                                          const uint32_t b[L / 2], const FieldConsts<L>& fc) {
+  if constexpr (STRICT) {
+    mont_mul<L>(r, a, b, fc);
+  } else {
+    mont<L>(r, a, b, fc);
+  }
+}
+
 // r = a + b mod p (a, b canonical); r may alias a or b
 template <int L>
 __device__ __forceinline__ void fadd(uint32_t r[L / 2], const uint32_t a[L / 2],

@@ -11,10 +11,11 @@
 // multiplies), about 1.4 integer multiplies per byte moved, so at full
 // occupancy it sits near the memory/integer ridge; add and sub are purely
 // memory-bound.  Design: one thread per output element, 16-byte vector
-// loads of the 64-byte element, the Montgomery form kept private to the
-// thread (in: canonical, out: canonical), and broadcasting by stride-0
-// operands so a (1, M) twiddle table or an (L,) scalar is never expanded
-// in memory.
+// loads of the 64-byte element (96 bytes at L = 24, the BLS12 base fields;
+// L = 16 is every scalar field and BN254's base field), the Montgomery
+// form kept private to the thread (in: canonical, out: canonical), and
+// broadcasting by stride-0 operands so a (1, M) twiddle table or an (L,)
+// scalar is never expanded in memory.
 #include "field.cuh"
 
 namespace zk {
@@ -72,10 +73,11 @@ extern "C" int zk_fp_binop(int L, int op, const void* a, const void* b, void* ou
   if (nd < 1 || nd > zk::MAXD) return (int)cudaErrorInvalidValue;
   zk::Bcast bc = zk::bcast_from_host(nd, shape, sa, sb);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (L == 16) {
-    return zk::launch_binop<16>(op, static_cast<const int32_t*>(a),
-                                static_cast<const int32_t*>(b), static_cast<int32_t*>(out), n,
-                                bc, reinterpret_cast<const uint32_t*>(consts), s);
-  }
+  const int32_t* pa = static_cast<const int32_t*>(a);
+  const int32_t* pb = static_cast<const int32_t*>(b);
+  int32_t* po = static_cast<int32_t*>(out);
+  const uint32_t* hc = reinterpret_cast<const uint32_t*>(consts);
+  if (L == 16) return zk::launch_binop<16>(op, pa, pb, po, n, bc, hc, s);
+  if (L == 24) return zk::launch_binop<24>(op, pa, pb, po, n, bc, hc, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,7 +17,13 @@
 // - squarings by a dedicated product (36 word products instead of 64);
 // - values lazily below 2p through the chain (p < R/4, checked by the
 //   wrapper), one canonicalization at the end; one conversion into
-//   Montgomery form on entry (x*R) and one out (mont(acc, 1)).
+//   Montgomery form on entry (x*R) and one out (mont(acc, 1));
+// - a strict instance (STRICT = true) for a field with 2p < R <= 4p
+//   (BLS12-381's Fr, 0.453 R), where a product of two values below 2p can
+//   exceed pR and the lazy bound fails: every product and squaring is
+//   brought below p (one conditional subtraction each), so the table and
+//   the accumulator stay canonical.  The wrapper picks the instance from
+//   the modulus (fields/cuda.py:pow_chain).
 #include "field.cuh"
 
 namespace zk {
@@ -77,33 +83,35 @@ __device__ __forceinline__ void wide_sqr(uint32_t T[2 * NW], const uint32_t a[NW
   T[2 * NW - 1] = ptx::addc(T[2 * NW - 1], (uint32_t)(d >> 32));
 }
 
-// r = a^2 R^-1 mod p, lazily (< 2p for a < 2p, p < R/4); r may alias a
-template <int L>
+// r = a^2 R^-1 mod p: lazily (< 2p for a < 2p, p < R/4), or canonical in
+// the STRICT mode (a < p, 2p < R); r may alias a
+template <int L, bool STRICT>
 __device__ __forceinline__ void mont_sqr(uint32_t r[L / 2], const uint32_t a[L / 2],
                                          const FieldConsts<L>& fc) {
   uint32_t T[L];
   wide_sqr<L / 2>(T, a);
   redc<L>(r, T, fc);
+  if constexpr (STRICT) csub<L / 2>(r, r, fc.p);
 }
 
-template <int L>
+template <int L, bool STRICT>
 __global__ void fp_pow_chain_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
                                     long long n, PowSchedule e, FieldConsts<L> fc) {
   constexpr int NW = L / 2;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     uint32_t x[NW], acc[NW], x2[NW];
-    uint32_t tab[POW_MAX_TABLE][NW];  // x^(2k+1) R, below 2p
+    uint32_t tab[POW_MAX_TABLE][NW];  // x^(2k+1) R, below 2p (below p if STRICT)
     load_elem<L>(x, a + i * L);
-    mont<L>(tab[0], x, fc.r2, fc);  // x * R
-    if (e.ntab > 1) mont_sqr<L>(x2, tab[0], fc);
-    for (int k = 1; k < e.ntab; ++k) mont<L>(tab[k], tab[k - 1], x2, fc);
+    mont_mode<L, STRICT>(tab[0], x, fc.r2, fc);  // x * R
+    if (e.ntab > 1) mont_sqr<L, STRICT>(x2, tab[0], fc);
+    for (int k = 1; k < e.ntab; ++k) mont_mode<L, STRICT>(tab[k], tab[k - 1], x2, fc);
     copy_w<NW>(acc, tab[e.first]);
     for (int s = 0; s < e.nsteps; ++s) {
-      for (int q = e.sq[s]; q > 0; --q) mont_sqr<L>(acc, acc, fc);
-      mont<L>(acc, acc, tab[e.dig[s]], fc);
+      for (int q = e.sq[s]; q > 0; --q) mont_sqr<L, STRICT>(acc, acc, fc);
+      mont_mode<L, STRICT>(acc, acc, tab[e.dig[s]], fc);
     }
-    for (int q = e.tail; q > 0; --q) mont_sqr<L>(acc, acc, fc);
+    for (int q = e.tail; q > 0; --q) mont_sqr<L, STRICT>(acc, acc, fc);
     uint32_t one[NW];
 #pragma unroll
     for (int j = 0; j < NW; ++j) one[j] = j == 0 ? 1u : 0u;
@@ -117,7 +125,8 @@ __global__ void fp_pow_chain_kernel(const int32_t* __restrict__ a, int32_t* __re
 
 extern "C" int zk_fp_pow_chain(int L, const void* a, void* out, long long n, int ntab, int first,
                                int nsteps, int tail, const unsigned short* sq,
-                               const unsigned char* dig, const unsigned* consts, void* stream) {
+                               const unsigned char* dig, int strict, const unsigned* consts,
+                               void* stream) {
   if (n <= 0) return 0;
   if (ntab < 1 || ntab > zk::POW_MAX_TABLE || first < 0 || first >= ntab || nsteps < 0 ||
       nsteps > zk::POW_MAX_STEPS || tail < 0)
@@ -136,11 +145,14 @@ extern "C" int zk_fp_pow_chain(int L, const void* a, void* out, long long n, int
   const int threads = n < 128 ? 32 : 128;
   long long want = (n + threads - 1) / threads;
   int blocks = (int)(want < (1LL << 20) ? want : (1LL << 20));
-  if (L == 16) {
-    zk::FieldConsts<16> fc = zk::consts_from_host<16>(reinterpret_cast<const uint32_t*>(consts));
-    zk::fp_pow_chain_kernel<16><<<blocks, threads, 0, s>>>(
-        static_cast<const int32_t*>(a), static_cast<int32_t*>(out), n, e, fc);
-    return (int)cudaGetLastError();
+  if (L != 16) return (int)cudaErrorInvalidValue;
+  zk::FieldConsts<16> fc = zk::consts_from_host<16>(reinterpret_cast<const uint32_t*>(consts));
+  const int32_t* pa = static_cast<const int32_t*>(a);
+  int32_t* po = static_cast<int32_t*>(out);
+  if (strict) {
+    zk::fp_pow_chain_kernel<16, true><<<blocks, threads, 0, s>>>(pa, po, n, e, fc);
+  } else {
+    zk::fp_pow_chain_kernel<16, false><<<blocks, threads, 0, s>>>(pa, po, n, e, fc);
   }
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

@@ -26,6 +26,12 @@
 //   wrapper checks it): twiddles and tables are stored once per plan as
 //   w*R mod p, so mont(v, w*R) = v*w < 2p without a final subtraction, and a
 //   butterfly reduces by 2p; only the last pass's store makes them canonical;
+// - a strict instance (STRICT = true) serves a field with 2p < R <= 4p
+//   (BLS12-381's Fr, 0.453 R), where a product of two values below 2p can
+//   exceed pR: there every product is brought below p (mont_mode) and every
+//   butterfly reduces by p, so values, the words between passes included,
+//   stay canonical.  The wrapper picks the instance from the modulus
+//   (ops/ntt_mr.py:fused_pass);
 // - between passes an element is 8 packed words (32 B), not 16 int32 limbs;
 // - a thread holds E = 4 elements of one column and runs up to two stages
 //   (a radix-4 step) in registers between two barriers; F = 128 takes steps
@@ -110,9 +116,26 @@ __device__ __forceinline__ void st_words(uint32_t* dst, const uint32_t w[NW]) {
   for (int k = 0; k < NW / 4; ++k) v[k] = make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
 }
 
+// lo, hi = lo + hi, lo - hi: reduced by 2p (lazy, values below 2p) or by p
+// (STRICT, values below p)
+template <int L, bool STRICT>
+__device__ __forceinline__ void butterfly(uint32_t lo[L / 2], uint32_t hi[L / 2],
+                                          const FieldConsts<L>& fc) {
+  constexpr int NW = L / 2;
+  uint32_t s[NW];
+  if constexpr (STRICT) {
+    add_mod<NW>(s, lo, hi, fc.p);
+    sub_mod<NW>(hi, lo, hi, fc.p);
+  } else {
+    add_mod<NW>(s, lo, hi, fc.p2);
+    sub_mod<NW>(hi, lo, hi, fc.p2);
+  }
+  copy_w<NW>(lo, s);
+}
+
 // one step of R DIT stages S0 .. S0+R-1 on the thread's E elements, which
 // form E / 2^R independent groups of 2^R
-template <int L, int LOGF, int S0, int R>
+template <int L, bool STRICT, int LOGF, int S0, int R>
 __device__ __forceinline__ void radix_step(uint32_t (&xr)[NttShape<LOGF>::E][L / 2], int tau,
                                            const uint32_t* __restrict__ tw,
                                            const FieldConsts<L>& fc) {
@@ -136,12 +159,9 @@ __device__ __forceinline__ void radix_step(uint32_t (&xr)[NttShape<LOGF>::E][L /
           // twiddle of stage s = S0 + a for index t mod 2^s
           uint32_t w[NW];
           ldg_words<NW>(w, tw + (size_t)((1 << (S0 + a)) + (((k & (H - 1)) << S0) | j)) * NW);
-          mont<L>(hi, hi, w, fc);  // < 2p
+          mont_mode<L, STRICT>(hi, hi, w, fc);  // < 2p (< p if STRICT)
         }
-        uint32_t s[NW];
-        add_mod<NW>(s, lo, hi, fc.p2);
-        sub_mod<NW>(hi, lo, hi, fc.p2);
-        copy_w<NW>(lo, s);
+        butterfly<L, STRICT>(lo, hi, fc);
       }
     }
   }
@@ -171,21 +191,21 @@ __device__ __forceinline__ void exchange(uint32_t (&xr)[NttShape<LOGF>::E][L / 2
   }
 }
 
-template <int L, int LOGF, int S0>
+template <int L, bool STRICT, int LOGF, int S0>
 __device__ __forceinline__ void ntt_steps(uint32_t (&xr)[NttShape<LOGF>::E][L / 2], uint32_t* smem,
                                           int tau, int c, const uint32_t* __restrict__ tw,
                                           const FieldConsts<L>& fc) {
   constexpr int R = LOGF - S0 < NTT_MAX_LOGE ? LOGF - S0 : NTT_MAX_LOGE;
-  radix_step<L, LOGF, S0, R>(xr, tau, tw, fc);
+  radix_step<L, STRICT, LOGF, S0, R>(xr, tau, tw, fc);
   if constexpr (S0 + R < LOGF) {
     constexpr int S1 = S0 + R;
     constexpr int R1 = LOGF - S1 < NTT_MAX_LOGE ? LOGF - S1 : NTT_MAX_LOGE;
     exchange<L, LOGF, S0, R, S1, R1>(xr, smem, tau, c);
-    ntt_steps<L, LOGF, S1>(xr, smem, tau, c, tw, fc);
+    ntt_steps<L, STRICT, LOGF, S1>(xr, smem, tau, c, tw, fc);
   }
 }
 
-template <int L, int LOGF>
+template <int L, bool STRICT, int LOGF>
 __global__ void __launch_bounds__(NttShape<LOGF>::THREADS)
 ntt_fused_pass_kernel(NttPassArgs a, FieldConsts<L> fc) {
   using S = NttShape<LOGF>;
@@ -225,11 +245,11 @@ ntt_fused_pass_kernel(NttPassArgs a, FieldConsts<L> fc) {
     if (a.tin != nullptr) {
       uint32_t w[NW];
       ldg_words<NW>(w, a.tin + (src * M + m) * NW);
-      mont<L>(xr[i], xr[i], w, fc);
+      mont_mode<L, STRICT>(xr[i], xr[i], w, fc);
     }
   }
   // 3. the DIT stages
-  if constexpr (LOGF > 0) ntt_steps<L, LOGF, 0>(xr, smem, tau, c, a.tw, fc);
+  if constexpr (LOGF > 0) ntt_steps<L, STRICT, LOGF, 0>(xr, smem, tau, c, a.tw, fc);
   if (!live) return;
   // 4-5. output table, store in the next layout
   const long long P = 1LL << a.logP;
@@ -242,7 +262,7 @@ ntt_fused_pass_kernel(NttPassArgs a, FieldConsts<L> fc) {
     if (a.tout != nullptr) {
       uint32_t w[NW];
       ldg_words<NW>(w, a.tout + (k * M + m) * NW);
-      mont<L>(xr[i], xr[i], w, fc);
+      mont_mode<L, STRICT>(xr[i], xr[i], w, fc);
     }
     if (a.last) {
       csub<NW>(xr[i], xr[i], fc.p);
@@ -257,32 +277,32 @@ ntt_fused_pass_kernel(NttPassArgs a, FieldConsts<L> fc) {
   }
 }
 
-template <int L, int LOGF>
+template <int L, bool STRICT, int LOGF>
 int launch_fused_pass(const NttPassArgs& a, const FieldConsts<L>& fc, cudaStream_t s) {
   using S = NttShape<LOGF>;
   if (S::SMEM > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(ntt_fused_pass_kernel<L, LOGF>,
+    cudaError_t e = cudaFuncSetAttribute(ntt_fused_pass_kernel<L, STRICT, LOGF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
     if (e != cudaSuccess) return (int)e;
   }
   const long long blocks = a.nb * ((a.M + NTT_CPB - 1) / NTT_CPB);
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  ntt_fused_pass_kernel<L, LOGF><<<(int)blocks, S::THREADS, S::SMEM, s>>>(a, fc);
+  ntt_fused_pass_kernel<L, STRICT, LOGF><<<(int)blocks, S::THREADS, S::SMEM, s>>>(a, fc);
   return (int)cudaGetLastError();
 }
 
-template <int L>
+template <int L, bool STRICT>
 int dispatch_fused_pass(int logF, const NttPassArgs& a, const FieldConsts<L>& fc, cudaStream_t s) {
   switch (logF) {
-    case 0: return launch_fused_pass<L, 0>(a, fc, s);
-    case 1: return launch_fused_pass<L, 1>(a, fc, s);
-    case 2: return launch_fused_pass<L, 2>(a, fc, s);
-    case 3: return launch_fused_pass<L, 3>(a, fc, s);
-    case 4: return launch_fused_pass<L, 4>(a, fc, s);
-    case 5: return launch_fused_pass<L, 5>(a, fc, s);
-    case 6: return launch_fused_pass<L, 6>(a, fc, s);
-    case 7: return launch_fused_pass<L, 7>(a, fc, s);
-    case 8: return launch_fused_pass<L, 8>(a, fc, s);
+    case 0: return launch_fused_pass<L, STRICT, 0>(a, fc, s);
+    case 1: return launch_fused_pass<L, STRICT, 1>(a, fc, s);
+    case 2: return launch_fused_pass<L, STRICT, 2>(a, fc, s);
+    case 3: return launch_fused_pass<L, STRICT, 3>(a, fc, s);
+    case 4: return launch_fused_pass<L, STRICT, 4>(a, fc, s);
+    case 5: return launch_fused_pass<L, STRICT, 5>(a, fc, s);
+    case 6: return launch_fused_pass<L, STRICT, 6>(a, fc, s);
+    case 7: return launch_fused_pass<L, STRICT, 7>(a, fc, s);
+    case 8: return launch_fused_pass<L, STRICT, 8>(a, fc, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -291,7 +311,7 @@ int dispatch_fused_pass(int logF, const NttPassArgs& a, const FieldConsts<L>& fc
 
 extern "C" int zk_ntt_fused_pass(int L, const void* x, void* y, int logF, long long nb,
                                  long long M, int logP, int logQn, int first, int last,
-                                 const void* tw, const void* tin, const void* tout,
+                                 const void* tw, const void* tin, const void* tout, int strict,
                                  const unsigned* consts, void* stream) {
   if (nb <= 0 || M <= 0) return 0;
   if (logF < 0 || logF > zk::NTT_MAX_LOGF) return (int)cudaErrorInvalidValue;
@@ -308,9 +328,8 @@ extern "C" int zk_ntt_fused_pass(int L, const void* x, void* y, int logF, long l
   a.first = first;
   a.last = last;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (L == 16) {
-    zk::FieldConsts<16> fc = zk::consts_from_host<16>(reinterpret_cast<const uint32_t*>(consts));
-    return zk::dispatch_fused_pass<16>(logF, a, fc, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (L != 16) return (int)cudaErrorInvalidValue;
+  zk::FieldConsts<16> fc = zk::consts_from_host<16>(reinterpret_cast<const uint32_t*>(consts));
+  if (strict) return zk::dispatch_fused_pass<16, true>(logF, a, fc, s);
+  return zk::dispatch_fused_pass<16, false>(logF, a, fc, s);
 }

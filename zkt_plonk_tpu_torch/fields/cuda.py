@@ -254,12 +254,14 @@ def binop(spec: FieldSpec, op: str, a: torch.Tensor, b: torch.Tensor) -> torch.T
         _cuda.field_consts(spec), _cuda.stream_ptr(a),
     )
     _cuda.check(err, "fp_binop")
-    _cuda.launches["fp_binop"] += 1
+    _cuda.launches[_cuda.instance("fp_binop", L)] += 1
     return out
 
 
 def pow_chain(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
-    """a^exponent elementwise for a fixed exponent >= 1; maps 0 to 0."""
+    """a^exponent elementwise for a fixed exponent >= 1; maps 0 to 0.  On
+    the card the kernel runs lazily (values below 2p) where 4p < R and in
+    its strict mode (values below p) where only 2p < R (BLS12-381's Fr)."""
     _check_operand(spec, a, "a")
     if exponent < 1:
         raise ValueError("pow_chain needs an exponent >= 1")
@@ -270,6 +272,7 @@ def pow_chain(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
     if exponent.bit_length() > 512:
         raise ValueError("exponent above 512 bits")
     sched = window_schedule(exponent)
+    strict, consts = _cuda.reduction_consts(spec)
     a = a.contiguous()
     out = torch.empty_like(a)
     if out.numel() == 0:
@@ -281,8 +284,8 @@ def pow_chain(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
         sched.ntab, sched.first, nsteps, sched.tail,
         (_cuda.ctypes.c_ushort * max(1, nsteps))(*[s for s, _ in sched.steps]),
         (_cuda.ctypes.c_ubyte * max(1, nsteps))(*[d for _, d in sched.steps]),
-        _cuda.ec_field_consts(spec), _cuda.stream_ptr(a),
+        int(strict), consts, _cuda.stream_ptr(a),
     )
     _cuda.check(err, "fp_pow_chain")
-    _cuda.launches["fp_pow_chain"] += 1
+    _cuda.launches[_cuda.instance("fp_pow_chain", strict=strict)] += 1
     return out

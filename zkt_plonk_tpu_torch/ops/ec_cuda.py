@@ -5,8 +5,9 @@ Complete projective addition (Renes-Costello-Batina 2015, Algorithm 7,
 a = 0) on points ``(..., 3, L)`` int32 of canonical limbs.  For points on
 the card the wrapper launches ``csrc/ec_add_complete.cu`` (one thread per
 point pair, 3b applied as a small integer, the formula of ``csrc/ec.cuh``
-that the MSM's bucket accumulation K4a shares); for points on the CPU it
-runs the plain version in int64 limb math.
+that the MSM's bucket accumulation K4a shares; one instance for L = 16,
+BN254's Fq, one for L = 24, the BLS12 base fields); for points on the CPU
+it runs the plain version in int64 limb math.
 """
 
 from __future__ import annotations
@@ -99,5 +100,5 @@ def add(spec: FieldSpec, b3: torch.Tensor, b3_int: int, p: torch.Tensor, q: torc
         b3_int, _cuda.ec_field_consts(spec), _cuda.stream_ptr(p),
     )
     _cuda.check(err, "ec_add_complete")
-    _cuda.launches["ec_add_complete"] += 1
+    _cuda.launches[_cuda.instance("ec_add_complete", L)] += 1
     return out

@@ -191,7 +191,7 @@ def bucket_accumulate(
         G, BW, K, n_pad // G, b3.value, _cuda.ec_field_consts(spec), _cuda.stream_ptr(points),
     )
     _cuda.check(err, "ec_bucket_accumulate")
-    _cuda.launches["ec_bucket_accumulate"] += 1
+    _cuda.launches[_cuda.instance("ec_bucket_accumulate", L)] += 1
     return out
 
 
@@ -294,6 +294,18 @@ def msm(fq_spec, Fq, b3, points, scalars, fr_bits: int, c: int = 0):
     c = msm_window_size(points.shape[0], c)
     totals = msm_totals(fq_spec, b3, points, scalars, fr_bits, c=c)
     return fold_windows_host(fq_spec, Fq, totals, c)
+
+
+def commit_rows(ctx, b3, points: torch.Tensor, polys) -> list:
+    """One commitment per row of ``polys`` ((B, m, L) tensor or a list of
+    (m, L)) over the first m of ``points``, as one batched MSM on their
+    device; host affine points (int pairs) or None."""
+    stacked = polys if isinstance(polys, torch.Tensor) else torch.stack(list(polys))
+    m = stacked.shape[1]
+    c = msm_window_size(m)
+    fr_bits = ctx.curve.fr.modulus.bit_length()
+    totals = msm_totals(ctx.fq_spec, b3, points[:m], stacked, fr_bits, c=c).cpu().numpy()
+    return [fold_windows_host(ctx.fq_spec, ctx.Fq, totals[i], c) for i in range(len(totals))]
 
 
 # ---------------------------------------------------------------------------

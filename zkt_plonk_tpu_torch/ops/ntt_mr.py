@@ -422,7 +422,10 @@ def fused_pass(spec: FieldSpec, plan: DevicePlan, d: int, x: torch.Tensor, nb: i
     """Pass d of the transform of nb polynomials: kernel K3 on the card, the
     plain version on the CPU.  In and out as ``fused_pass_plain``, except
     that on the card the intermediate (F_{d+1}, nb n / F_{d+1}, L/2) holds
-    packed words of values below 2p (canonical domain, not Montgomery)."""
+    packed words (canonical domain, not Montgomery): of values below 2p in
+    the lazy mode, where 4p < R, and of canonical values, the plain
+    version's words bit for bit, in the strict mode, where only 2p < R
+    (BLS12-381's Fr; ``_cuda.reduction_consts``)."""
     if x.dtype != torch.int32:
         raise TypeError("fused_pass expects torch.int32")
     if x.device.type == "cpu" and plan.stage_tws[d].device.type == "cpu":
@@ -444,6 +447,7 @@ def fused_pass(spec: FieldSpec, plan: DevicePlan, d: int, x: torch.Tensor, nb: i
         return out
     tin = plan.tin if d == 0 else None
     tout = plan.tout[d]
+    strict, consts = _cuda.reduction_consts(spec)
     fn = _cuda.lib("ntt_col_pass").zk_ntt_fused_pass
     err = fn(
         L, x.data_ptr(), out.data_ptr(), F.bit_length() - 1, nb, M,
@@ -451,10 +455,10 @@ def fused_pass(spec: FieldSpec, plan: DevicePlan, d: int, x: torch.Tensor, nb: i
         plan.stage_tws[d].data_ptr(),
         None if tin is None else tin.data_ptr(),
         None if tout is None else tout.data_ptr(),
-        _cuda.ec_field_consts(spec), _cuda.stream_ptr(x),
+        int(strict), consts, _cuda.stream_ptr(x),
     )
     _cuda.check(err, "ntt_col_pass")
-    _cuda.launches["ntt_col_pass"] += 1
+    _cuda.launches[_cuda.instance("ntt_col_pass", strict=strict)] += 1
     return out
 
 

@@ -2,15 +2,16 @@
 
 Usage (from the repository root, on a machine with a card):
 
-    python -m zkt_plonk_tpu_torch.tools.profile_withdraw [--height 48]
-        [--notes 3] [--table 1024] [--out profile_withdraw.json]
+    python -m zkt_plonk_tpu_torch.tools.profile_withdraw [--curve bn254]
+        [--height 48] [--notes 3] [--table 1024] [--out profile_withdraw.json]
 
 The file imports the package by its absolute name, so it also profiles
 another tree of the port: ``PYTHONPATH=<tree> python <this file>``.
 
 It builds the withdraw circuit (default: the reference's HEIGHT=48,
-NOTES=3, TABLE=1024, n = 2^18), sets up the SRS, compiles, proves once to
-warm up, then
+NOTES=3, TABLE=1024, n = 2^18; on BN254 with the Ethereum transcript, or
+with ``--curve bls12_381`` on BLS12-381 with Merlin and 48-byte
+coordinates), sets up the SRS, compiles, proves once to warm up, then
   1. proves again with every prover phase timed on the host clock around a
      ``torch.cuda.synchronize()`` (synthesis, the iNTT/blinding batches, the
      MSM commit batches, the z and quotient rounds, evaluations,
@@ -66,6 +67,7 @@ def _timed(table, stack, name, fn):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--curve", default="bn254", choices=["bn254", "bls12_381"])
     ap.add_argument("--height", type=int, default=48)
     ap.add_argument("--notes", type=int, default=3)
     ap.add_argument("--table", type=int, default=1024)
@@ -86,8 +88,14 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     dev = torch.device("cuda")
-    circuit, table, pub = build(args.height, args.notes, args.table)
-    inst = ZKTPlonk(curve="bn254", table=table, device=dev)
+    circuit, table, pub = build(args.height, args.notes, args.table, curve=args.curve)
+    if args.curve == "bn254":
+        inst = ZKTPlonk(curve="bn254", table=table, device=dev)
+    else:
+        from zkt_plonk_tpu_torch.transcript.merlin import MerlinTranscript
+
+        inst = ZKTPlonk(curve=args.curve, table=table, device=dev,
+                        transcript_factory=lambda label: MerlinTranscript(label, coord_bytes=48))
     cs = ConstraintSystem(inst.p, setup=True, lookup_table=table)
     circuit.synthesize(cs)
     bound = cs.circuit_bound()
@@ -176,7 +184,8 @@ def main() -> int:
     record = {
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi,
-        "config": {"height": args.height, "notes": args.notes, "table": args.table, "n": bound},
+        "config": {"curve": args.curve, "height": args.height, "notes": args.notes,
+                   "table": args.table, "n": bound},
         "compile_s": compile_s,
         "prove_s": prove_s,
         "phases_s": phases,

@@ -2,9 +2,9 @@
 
 Usage (from the repository root, on a machine with a card):
 
-    python -m zkt_plonk_tpu_torch.tools.sweep_msm_groups [--log-n 18]
-        [--batches 1,2,3,6,10] [--groups 128,192,...,2816] [--reps 3]
-        [--max-rows 262144] [--out sweep_msm_groups.json]
+    python -m zkt_plonk_tpu_torch.tools.sweep_msm_groups [--curve bn254]
+        [--log-n 18] [--batches 1,2,3,6,10] [--groups 128,192,...,2816]
+        [--reps 3] [--max-rows 262144] [--out sweep_msm_groups.json]
 
 For each batch size B (the prover's commit batches at n = 2^18 are
 B = 1, 2, 3, 6 and 10 polynomials of n + 4 coefficients) and each G, it
@@ -16,9 +16,12 @@ warm up and ``--reps`` times on the host clock after a
 device time of the bucket accumulation alone (kernel K4a, CUDA events
 around one launch, median of ``--reps``), whose share of the commit the
 group merge and the suffix scan leave, and the commit's peak device
-memory above what was allocated before it.  The card's name and power limit are
-printed beside the numbers and the whole record is written as JSON to
-``--out``.
+memory above what was allocated before it.  ``--curve`` picks the SRS's
+curve: BN254 runs kernel K4a at L = 16, the BLS12 curves its L = 24
+instance.  For each B it also prints the G that ``msm.group_count``
+picks and how far its commit and accumulation times are from the best
+G's.  The card's name and power limit are printed beside the numbers and
+the whole record is written as JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--curve", default="bn254", choices=["bn254", "bls12_381", "bls12_377"])
     ap.add_argument("--log-n", type=int, default=18)
     ap.add_argument("--batches", default="1,2,3,6,10")
     ap.add_argument("--groups", default="128,192,256,352,512,704,1024,1408,2048,2816")
@@ -57,7 +61,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     dev = torch.device("cuda")
-    ctx = make_context("bn254")
+    ctx = make_context(args.curve)
     m = (1 << args.log_n) + 4
     ck, _ = kzg.setup(ctx, max_degree=m - 1, tau=987654321, device=dev)
     fr_bits = ctx.curve.fr.modulus.bit_length()
@@ -86,7 +90,7 @@ def main() -> int:
         ).cpu().numpy()
         return [msm.fold_windows_host(ctx.fq_spec, ctx.Fq, t, c) for t in totals]
 
-    print(f"card: {smi}  m={m} c={c}", flush=True)
+    print(f"card: {smi}  curve={args.curve} L={ctx.fq_spec.n_limbs} m={m} c={c}", flush=True)
     rows = []
     for B in batches:
         limbs = gen.integers(0, 1 << 16, size=(B, m, 16), dtype=np.int64)
@@ -125,11 +129,21 @@ def main() -> int:
     for r in rows:
         if r["batch"] not in best or r["seconds"] < best[r["batch"]]["seconds"]:
             best[r["batch"]] = r
+    rule = {}
     for B, r in best.items():
-        print(f"best for B={B}: G={r['groups']} ({r['seconds'] * 1e3:.2f} ms)", flush=True)
-    record = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "m": m, "c": c,
-              "reps": args.reps, "rows": rows,
-              "best": {str(B): r["groups"] for B, r in best.items()}}
+        G = msm.group_count(m, c, B, msm.num_windows(fr_bits + 1, c))
+        picked = next((x for x in rows if x["batch"] == B and x["groups"] == G), None)
+        best_acc = min(x["accumulate_ms"] for x in rows if x["batch"] == B)
+        rule[str(B)] = {"groups": G}
+        if picked is not None:
+            rule[str(B)].update(
+                commit_over_best=picked["seconds"] / r["seconds"],
+                accumulate_over_best=picked["accumulate_ms"] / best_acc)
+        print(f"best for B={B}: G={r['groups']} ({r['seconds'] * 1e3:.2f} ms); "
+              f"rule: G={G} {rule[str(B)]}", flush=True)
+    record = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "curve": args.curve,
+              "m": m, "c": c, "reps": args.reps, "rows": rows,
+              "best": {str(B): r["groups"] for B, r in best.items()}, "rule": rule}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)
