@@ -9,6 +9,9 @@ Phases, one line each:
   2. build    — nvcc builds of the five kernel sources in csrc/ (in
                 parallel), with ptxas's registers and spills for every
                 kernel instance and each kernel's SASS instruction mix;
+                each EC instance's resident blocks per SM and registers
+                from the card's occupancy call, and K4a's against the table
+                of ops/msm.py that its G rule reads (a mismatch fails);
   3. parity   — each kernel instance against its plain PyTorch version on
                 the same card tensors at the main paths' shapes (and
                 against Python ints on a sample), with its device time per
@@ -626,7 +629,7 @@ def parity_ec_bucket_accumulate(records, dev, curve="bn254", log_n=18):
 
     # parity at B = 3 (the prover's middle batch), n not a multiple of G
     B = 3
-    G = msm.group_count(n, c, B, msm.num_windows(fr_bits + 1, c))
+    G = msm.group_count(n, c, B, msm.num_windows(fr_bits + 1, c), L)
     S_np = scalars(B)
     edge = ints_to_array([0, 1, r - 1, 0xFFFF, (1 << 253) - 1, (r - 1) // 2], 16)
     S_np[0, : len(edge)] = edge
@@ -677,7 +680,7 @@ def parity_ec_bucket_accumulate(records, dev, curve="bn254", log_n=18):
     del got, plain, digits
     # the prover's other commit batches
     for B in (1, 2, 6):
-        G = msm.group_count(n, c, B, msm.num_windows(fr_bits + 1, c))
+        G = msm.group_count(n, c, B, msm.num_windows(fr_bits + 1, c), L)
         digits = msm.digit_rows(torch.from_numpy(scalars(B)).to(dev), c, fr_bits, G)
         ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c),
                        reps=3, warmup=1)
@@ -1175,6 +1178,25 @@ def ptxas_report(name: str):
     return out
 
 
+def occupancy_report() -> None:
+    """Resident blocks per SM and registers of K4 and K4a at L = 16 and 24,
+    from the card; K4a's blocks must equal ``msm.ACC_RESIDENT_BLOCKS``, from
+    which ``msm.group_count`` sizes its bucket rows."""
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.ops import msm
+
+    for name in _cuda.OCCUPANCY_KERNELS:
+        for L in (16, 24):
+            blocks, regs = _cuda.occupancy(name, L)
+            key = _cuda.instance(name, L)
+            say("occupancy", kernel=key, threads=msm.ACC_THREADS, blocks_per_sm=blocks,
+                registers=regs, resident_threads=blocks * msm.ACC_THREADS * msm.ACC_SMS)
+            if name == "ec_bucket_accumulate" and blocks != msm.ACC_RESIDENT_BLOCKS[L]:
+                raise AssertionError(
+                    f"{key}: {blocks} resident blocks per SM on the card, "
+                    f"msm.ACC_RESIDENT_BLOCKS says {msm.ACC_RESIDENT_BLOCKS[L]}")
+
+
 PHASES = ("parity", "golden", "withdraw", "poseidon", "cli", "bls12_withdraw", "matrix")
 
 
@@ -1206,6 +1228,7 @@ def main() -> int:
         for fn, regs, st, ld in ptxas_report(name):
             say("ptxas", kernel=name, fn=fn, registers=regs, spill_stores=st, spill_loads=ld)
     sass_mix()
+    occupancy_report()
 
     records = {}
     if "parity" in phases:

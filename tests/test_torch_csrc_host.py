@@ -1,0 +1,291 @@
+"""The EC kernels' own word arithmetic, compiled for the host.
+
+``zkt_plonk_tpu_torch/csrc/field.cuh`` and ``csrc/ec.cuh`` are the
+arithmetic of kernels K4 and K4a.  Here they are built with ``g++`` beside
+a host ``ptx.cuh`` (each PTX carry primitive on one carry flag, the
+shared-memory loads and stores as plain ones) and a stub
+``cuda_runtime.h``, and called through ctypes:
+
+* ``mont_cios`` (a product interleaved with its reduction) and
+  ``mont_staged`` (the same with its row operands in shared memory, for a
+  product and for a sum of two) against Python ints, word for word, at
+  operands 0, 1, p - 1, p, 2p - 1 and 2p (the lazy bounds) and random ones
+  below 2p;
+* ``rcb_add`` (registers, the 8-word instance's form) and
+  ``rcb_add_staged`` (inputs staged in shared memory, the 12-word
+  instances' form) on BN254's Fq (L = 16, 3b = 9), BLS12-381's Fq (L = 24,
+  3b = 12) and BLS12-377's Fq (L = 24, 3b = 3), in Montgomery form, against
+  ``ops.ec_cuda.add_plain`` bit for bit after conversion out of Montgomery
+  form: the identity, doublings, P + (-P), random projective pairs of
+  curve points, and coordinates at 0, 1 and p - 1.
+
+Without ``g++`` the module's fixture skips.
+"""
+
+import ctypes
+import random
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from zkt_plonk_tpu_torch import _cuda
+from zkt_plonk_tpu_torch.curves import curve_host as ch
+from zkt_plonk_tpu_torch.curves import make_context
+from zkt_plonk_tpu_torch.fields.limbs import array_to_ints, ints_to_array
+from zkt_plonk_tpu_torch.ops import ec, ec_cuda
+
+CSRC = Path(__file__).resolve().parents[1] / "zkt_plonk_tpu_torch" / "csrc"
+
+HOST_PTX = r"""
+#pragma once
+#include <cstdint>
+#include <cuda_runtime.h>
+namespace zk {
+namespace ptx {
+inline uint32_t& carry() {
+  static thread_local uint32_t flag = 0;
+  return flag;
+}
+inline uint32_t add_cc(uint32_t a, uint32_t b) {
+  const uint64_t s = (uint64_t)a + b;
+  carry() = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+}
+inline uint32_t addc_cc(uint32_t a, uint32_t b) {
+  const uint64_t s = (uint64_t)a + b + carry();
+  carry() = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+}
+inline uint32_t addc(uint32_t a, uint32_t b) { return a + b + carry(); }
+inline uint32_t sub_cc(uint32_t a, uint32_t b) {
+  const uint64_t d = (uint64_t)a - b;
+  carry() = (uint32_t)(d >> 63);
+  return (uint32_t)d;
+}
+inline uint32_t subc_cc(uint32_t a, uint32_t b) {
+  const uint64_t d = (uint64_t)a - b - carry();
+  carry() = (uint32_t)(d >> 63);
+  return (uint32_t)d;
+}
+inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - carry(); }
+inline uint4 ld_shared_v4(const uint4* p) { return *p; }
+inline void st_shared_v4(uint4* p, uint4 v) { *p = v; }
+}  // namespace ptx
+}  // namespace zk
+"""
+
+CUDA_STUB = r"""
+#pragma once
+#include <cstdint>
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+struct int4 { int x, y, z, w; };
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return uint4{x, y, z, w}; }
+inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz((unsigned)v); }
+"""
+
+SHIM = r"""
+#include "ec.cuh"
+using namespace zk;
+
+template <int L>
+static void mont_n(int mode, const uint32_t* h, const uint32_t* a, const uint32_t* b,
+                   const uint32_t* c, const uint32_t* d, uint32_t* out, long n) {
+  constexpr int NW = L / 2;
+  const FieldConsts<L> fc = consts_from_host<L>(h);
+  uint4 buf[2 * NW / 4];
+  const ecw::Staged<NW> st{buf, 1};
+  for (long i = 0; i < n; ++i) {
+    const long o = i * NW;
+    st.store(0, a + o);
+    st.store(1, c + o);
+    if (mode == 0) mont_cios<L>(out + o, a + o, b + o, fc);
+    if (mode == 1) ecw::mont_staged<L, false>(out + o, st, 0, b + o, 0, b + o, fc);
+    if (mode == 2) ecw::mont_staged<L, true>(out + o, st, 0, b + o, 1, d + o, fc);
+  }
+}
+
+template <int L>
+static void rcb_n(int staged, const uint32_t* h, const uint32_t* P, const uint32_t* Q, int b3,
+                  uint32_t* out, long n) {
+  constexpr int NW = L / 2;
+  const FieldConsts<L> fc = consts_from_host<L>(h);
+  for (long i = 0; i < n; ++i) {
+    const uint32_t* p = P + i * 3 * NW;
+    const uint32_t* q = Q + i * 3 * NW;
+    uint32_t* o = out + i * 3 * NW;
+    if (!staged) {
+      ecw::rcb_add<L>(o, o + NW, o + 2 * NW, p, p + NW, p + 2 * NW, q, q + NW, q + 2 * NW, b3, fc);
+      continue;
+    }
+    uint4 buf[ecw::STAGED_VALUES * NW / 4];
+    const ecw::Staged<NW> st{buf, 1};
+    for (int c = 0; c < 3; ++c) {
+      st.store(c, p + c * NW);
+      st.store(3 + c, q + c * NW);
+    }
+    ecw::rcb_add_staged<L>(st, b3, fc, [&](int c, const uint32_t* w) {
+      for (int j = 0; j < NW; ++j) o[c * NW + j] = w[j];
+    });
+  }
+}
+
+extern "C" void host_mont(int L, int mode, const uint32_t* h, const uint32_t* a, const uint32_t* b,
+                          const uint32_t* c, const uint32_t* d, uint32_t* out, long n) {
+  if (L == 16) mont_n<16>(mode, h, a, b, c, d, out, n);
+  if (L == 24) mont_n<24>(mode, h, a, b, c, d, out, n);
+}
+
+extern "C" void host_rcb(int L, int staged, const uint32_t* h, const uint32_t* P,
+                         const uint32_t* Q, int b3, uint32_t* out, long n) {
+  if (L == 16) rcb_n<16>(staged, h, P, Q, b3, out, n);
+  if (L == 24) rcb_n<24>(staged, h, P, Q, b3, out, n);
+}
+"""
+
+CURVES = ("bn254", "bls12_381", "bls12_377")
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not found: the host build of csrc/field.cuh and csrc/ec.cuh needs it")
+    d = tmp_path_factory.mktemp("csrc_host")
+    (d / "ptx.cuh").write_text(HOST_PTX)
+    (d / "cuda_runtime.h").write_text(CUDA_STUB)
+    for name in ("field.cuh", "ec.cuh"):
+        shutil.copy(CSRC / name, d / name)
+    (d / "shim.cpp").write_text(SHIM)
+    so = d / "libhost_ec.so"
+    subprocess.run(
+        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas", "-I", str(d),
+         "-o", str(so), str(d / "shim.cpp")],
+        check=True, capture_output=True, text=True, timeout=240,
+    )
+    lib = ctypes.CDLL(str(so))
+    P, I, LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.host_mont.argtypes = [I, I, P, P, P, P, P, P, LONG]
+    lib.host_rcb.argtypes = [I, I, P, P, P, I, P, LONG]
+    return lib
+
+
+def _words(values, nw):
+    return np.array([[(v >> (32 * j)) & 0xFFFFFFFF for j in range(nw)] for v in values],
+                    dtype=np.uint32)
+
+
+def _ints(words):
+    return [sum(int(w) << (32 * j) for j, w in enumerate(row)) for row in words]
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _exact_redc(T, p, nw):
+    """(T + M p) / R for the one M < R that makes it divisible by R: the
+    lazy value a word-by-word Montgomery reduction gives."""
+    R = 1 << (32 * nw)
+    M = (-T * pow(p, -1, R)) % R
+    return (T + M * p) // R
+
+
+@pytest.mark.parametrize("curve", CURVES)
+def test_interleaved_products_match_python_word_for_word(host_lib, curve):
+    spec = make_context(curve).fq_spec
+    L = spec.n_limbs
+    nw = L // 2
+    p = spec.modulus
+    R = 1 << (32 * nw)
+    rng = random.Random(L + p % 97)
+    edges = [0, 1, p - 1, p, 2 * p - 1]
+    ops = [(x, y, z, w) for x in edges for y in edges + [2 * p] for z, w in ((x, y), (y, x))]
+    ops += [(edges[i % 5], 2 * p, edges[(i + 2) % 5], 2 * p) for i in range(5)]
+    ops += [tuple(rng.randrange(2 * p) for _ in range(4)) for _ in range(300)]
+    a, b, c, d = (_words([o[k] for o in ops], nw) for k in range(4))
+    consts = _cuda.ec_field_consts(spec)
+    for mode in (0, 1, 2):  # mont_cios, mont_staged, mont_staged with a sum
+        sum_ = mode == 2
+        out = np.zeros_like(a)
+        host_lib.host_mont(L, mode, consts, _ptr(a), _ptr(b), _ptr(c), _ptr(d), _ptr(out), len(ops))
+        got = _ints(out)
+        for (x, y, z, w), r in zip(ops, got):
+            T = x * y + (z * w if sum_ else 0)
+            assert r == _exact_redc(T, p, nw), (curve, mode, x, y, z, w)
+            assert r * R < T + p * R and (sum_ or r < 2 * p)
+
+
+def _pairs(curve, rng):
+    """(P, Q) pairs of canonical projective coordinates (int triples)."""
+    ctx = make_context(curve)
+    p = ctx.fq_spec.modulus
+    r = ctx.curve.fr.modulus
+    g = ctx.g1
+    pts = [ch.scalar_mul(g, rng.randrange(1, r)) for _ in range(12)]
+
+    def proj(pt):
+        if pt is None:
+            return (0, 1, 0)
+        z = rng.randrange(1, p)
+        return (int(pt[0]) * z % p, int(pt[1]) * z % p, z)
+
+    def affine(pt):
+        return (0, 1, 0) if pt is None else (int(pt[0]), int(pt[1]), 1)
+
+    ident = (0, 1, 0)
+    pairs = [(ident, ident), (ident, affine(pts[0])), (affine(pts[1]), ident), (proj(None), proj(pts[2]))]
+    for pt in pts[:6]:
+        pairs += [(affine(pt), affine(pt)), (proj(pt), proj(pt)), (proj(pt), proj(ch.neg(pt))),
+                  (affine(pt), affine(ch.neg(pt)))]
+    pairs += [(proj(pts[i]), proj(pts[(i + 5) % 12])) for i in range(12)]
+    pairs += [(affine(pts[i]), proj(pts[(i + 3) % 12])) for i in range(12)]
+    # the formula on coordinates at the edges of the canonical range, on
+    # and off the curve: the kernels and add_plain compute the same function
+    edges = [0, 1, p - 1, rng.randrange(p)]
+    for _ in range(80):
+        pairs.append((tuple(rng.choice(edges) for _ in range(3)), tuple(rng.choice(edges) for _ in range(3))))
+    pairs += [(tuple(rng.randrange(p) for _ in range(3)), tuple(rng.randrange(p) for _ in range(3)))
+              for _ in range(60)]
+    return pairs
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["registers", "staged"])
+@pytest.mark.parametrize("curve", CURVES)
+def test_rcb_add_matches_add_plain_bit_for_bit(host_lib, curve, staged):
+    ctx = make_context(curve)
+    spec = ctx.fq_spec
+    L = spec.n_limbs
+    nw = L // 2
+    p = spec.modulus
+    R = 1 << (32 * nw)
+    b = int(ctx.curve.b)
+    b3 = ec.b3_const(spec, b, device="cpu")
+    assert b3.value == 3 * b
+    pairs = _pairs(curve, random.Random(b3.value * L))
+    n = len(pairs)
+
+    def mont_words(side):
+        vals = [c * R % p for pair in pairs for c in pair[side]]
+        return _words(vals, nw).reshape(n, 3 * nw)
+
+    P, Q = mont_words(0), mont_words(1)
+    out = np.zeros_like(P)
+    host_lib.host_rcb(L, int(staged), _cuda.ec_field_consts(spec), _ptr(P), _ptr(Q), b3.value,
+                      _ptr(out), n)
+    rinv = pow(R, -1, p)
+    got = [v * rinv % p for v in _ints(out.reshape(3 * n, nw))]
+
+    def limbs(side):
+        vals = [c for pair in pairs for c in pair[side]]
+        return torch.from_numpy(ints_to_array(vals, L).astype(np.int32)).reshape(n, 3, L)
+
+    want = array_to_ints(ec_cuda.add_plain(spec, b3.limbs, limbs(0), limbs(1)).reshape(3 * n, L).numpy())
+    assert got == want

@@ -5,7 +5,9 @@ JAX package.
   on identity, doubling, P + (-P), random pairs and projective (Z != 1)
   inputs;
 * ``msm`` against ``zkt_plonk_tpu.curves.host.msm`` as affine ints at 68
-  points;
+  points, on BN254 and on BLS12-381 (K4a's L = 24 instance);
+* the bucket group rule ``msm.group_count`` at the prover's commit
+  batches, per instance from its resident rows;
 * ``fixed_base_msm`` at 16 scalars against host scalar multiplication;
 * the bucket accumulation (plain CPU version of kernel K4a) against
   ``zkt_plonk_tpu.ops.msm._accumulate`` as bucket limbs, bit for bit, at
@@ -41,6 +43,10 @@ from zkt_plonk_tpu_torch.fields.params import (
     BLS12_377_FQ, BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR, FieldParams,
 )
 from zkt_plonk_tpu_torch.ops import ec, msm
+
+# the G rule's picks at L = 24 for B = 1, 2, 3, 6, 10, from K4a's L = 24
+# residency in msm.ACC_RESIDENT_BLOCKS
+L24_GROUPS = (1024, 512, 512, 256, 128)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -109,6 +115,45 @@ def test_msm_matches_host_msm(srs, msm_case, groups):
     c = msm.msm_window_size(68)
     totals = msm.msm_totals(ctx.fq_spec, ck.b3, ck.powers, S, fr_bits, c=c, groups=groups)
     assert msm.fold_windows_host(ctx.fq_spec, ctx.Fq, totals, c) == want
+
+
+# The G rule at the prover's commit batches B = 1, 2, 3, 6, 10 (n = 2^18 + 4,
+# c = 8, 32 windows on BN254 and BLS12-381): at L = 16 the picks of the
+# L = 16 sweep; at L = 24 those that its instance's resident rows imply
+# (msm.ACC_RESIDENT_BLOCKS); and at L = 24 with 2 resident blocks, the
+# residency of the 240-register instance, the picks its sweep found best
+# (PERF.md).
+@pytest.mark.parametrize(
+    "limbs, blocks, want",
+    [(16, None, (1024, 512, 512, 256, 128)), (24, None, L24_GROUPS),
+     (24, 2, (1024, 512, 256, 128, 64))],
+    ids=["L16", "L24", "L24-two-blocks"],
+)
+def test_group_rule_counts_each_instances_resident_rows(monkeypatch, limbs, blocks, want):
+    if blocks is not None:
+        monkeypatch.setitem(msm.ACC_RESIDENT_BLOCKS, limbs, blocks)
+    n, c = (1 << 18) + 4, 8
+    for fr_bits in (254, 255):
+        W = msm.num_windows(fr_bits + 1, c)
+        assert W == 32
+        assert tuple(msm.group_count(n, c, B, W, limbs) for B in (1, 2, 3, 6, 10)) == want
+
+
+def test_msm_over_bls12_381_matches_jax_host_msm():
+    """msm.msm on BLS12-381 points (K4a's L = 24 instance, G from its rule)
+    against the JAX package's host MSM."""
+    ctx = make_context("bls12_381")
+    ck, _ = kzg.setup(ctx, max_degree=67, tau=4242, device="cpu")
+    r = ctx.curve.fr.modulus
+    rng = random.Random(381)
+    scalars = [0, 1, r - 1] + [rng.randrange(r) for _ in range(65)]
+    S = torch.from_numpy(ints_to_array(scalars, 16).astype(np.int32))
+    got = msm.msm(ctx.fq_spec, ctx.Fq, ck.b3, ck.powers, S, r.bit_length())
+    jctx = jax_make_context("bls12_381")
+    pts = [None if p is None else (jctx.Fq(p[0]), jctx.Fq(p[1]))
+           for p in ec.to_affine_host(ctx.fq_spec, ck.powers)]
+    want = jch.msm(pts, scalars)
+    assert got == (int(want[0]), int(want[1]))
 
 
 def test_batched_msm_matches_single(srs):
@@ -242,7 +287,7 @@ SECP256K1_FQ = FieldParams(name="secp256k1_fq", modulus=2**256 - 2**32 - 977, ge
 )
 def test_kernel_constants_check_the_modulus(params, field_ok, ec_ok):
     """The field kernels need 2p < R = 2^(16 L), the EC kernels' lazy
-    reduction 4p < R (BN254's Fq at L = 16, the BLS12 base fields at
+    reduction 5p < R (BN254's Fq at L = 16, the BLS12 base fields at
     L = 24); a modulus without that headroom is refused before any launch.
     K2 and K3 run lazily where 4p < R and strictly where only 2p < R."""
     spec = make_spec(params)

@@ -167,7 +167,26 @@ def _declare(name: str, cdll: ctypes.CDLL) -> ctypes.CDLL:
     fn = getattr(cdll, fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    if name in OCCUPANCY_KERNELS:
+        occ = getattr(cdll, f"zk_{name}_occupancy")
+        occ.argtypes = [I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        occ.restype = ctypes.c_int
     return cdll
+
+
+# the kernels whose libraries report their occupancy per limb count
+OCCUPANCY_KERNELS = ("ec_add_complete", "ec_bucket_accumulate")
+
+
+def occupancy(name: str, L: int):
+    """(resident blocks per SM, registers per thread) of kernel ``name``'s
+    main function at L limbs, from the card
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the kernel's block
+    size, cudaFuncGetAttributes)."""
+    blocks, regs = ctypes.c_int(), ctypes.c_int()
+    err = getattr(lib(name), f"zk_{name}_occupancy")(L, ctypes.byref(blocks), ctypes.byref(regs))
+    check(err, f"{name} occupancy")
+    return blocks.value, regs.value
 
 
 def check(err: int, what: str) -> None:
@@ -203,13 +222,15 @@ def field_consts(spec):
 
 def ec_field_consts(spec):
     """``field_consts`` for the EC kernels K4 and K4a, whose lazy reduction
-    (``csrc/ec.cuh``: values in [0, 2p) inside the formula) needs 4p < R.
-    It holds at L = 16 for BN254's Fq (p < 0.19 R) and at L = 24 for the
-    BLS12 base fields (0.102 R and 0.007 R)."""
+    (``csrc/ec.cuh``: values in [0, 2p) inside the formula) needs 4p < R,
+    and whose interleaved sums of two products (``csrc/field.cuh``,
+    ``mont_row``) hold below (2^32 + 1) 5p in NW + 1 words: 5p < R with
+    that margin.  It holds at L = 16 for BN254's Fq (p < 0.19 R) and at
+    L = 24 for the BLS12 base fields (0.102 R and 0.007 R)."""
     bits = 16 * spec.n_limbs
-    if 4 * spec.modulus >= 1 << bits:
+    if 5 * spec.modulus * ((1 << 32) + 1) >= 1 << (bits + 32):
         raise ValueError(
-            f"the EC kernels' lazy reduction needs 4p < 2^{bits}; "
+            f"the EC kernels' lazy reduction needs 5p < 2^{bits}; "
             f"p has {spec.modulus.bit_length()} bits"
         )
     return field_consts(spec)
@@ -220,9 +241,7 @@ def reduction_consts(spec):
     where 4p < R, else their strict mode (every value below p, every
     product and sum brought below p), which needs only 2p < R: BLS12-381's
     Fr (p = 0.453 R).  ``field_consts`` refuses a field with 2p >= R."""
-    if 4 * spec.modulus < 1 << (16 * spec.n_limbs):
-        return False, ec_field_consts(spec)
-    return True, field_consts(spec)
+    return 4 * spec.modulus >= 1 << (16 * spec.n_limbs), field_consts(spec)
 
 
 def ll_array(vals):

@@ -7,14 +7,16 @@
 // a*b + c*d, so each pair takes two wide products and ONE reduction (12
 // products, 9 reductions).
 //
-// Lazy reduction: the functions below need p < R/4 (BN254's Fq: p < 0.19 R
+// Lazy reduction: the functions below need p < R/5 (BN254's Fq: p < 0.19 R
 // at L = 16; the BLS12 base fields at L = 24: 0.102 R and 0.007 R; the
 // wrappers check it, _cuda.ec_field_consts).  Then a product of two
 // values below 2p, reduced without the final subtraction, is below
 // (2p)^2/R + p < 2p, so inside the formula values live in [0, 2p) and
 // additions reduce by 2p; a layer-3 sum of two such products is below
-// 8p^2/R + p < 2.52p and two subtractions of p make it canonical.  Inputs
-// and outputs of rcb_add are canonical (< p).
+// 8p^2/R + p < 2.52p and two subtractions of p make it canonical (the
+// interleaved sums of rcb_add_staged hold below (2^32 + 1) 5p in NW + 1
+// words, field.cuh's mont_row).  Inputs and outputs of rcb_add and
+// rcb_add_staged are canonical (< p).
 #pragma once
 
 #include "field.cuh"
@@ -126,6 +128,152 @@ __device__ __forceinline__ void rcb_add(uint32_t X3[L / 2], uint32_t Y3[L / 2], 
   sop_canon<L>(X3, t3, v, t4, t1, fc);  // t3 td - t4 b3t5
   sop_canon<L>(Y3, t5, t0, v, u, fc);   // b3t5 m3t0 + td zs
   sop_canon<L>(Z3, u, t4, t0, t3, fc);  // zs t4 + m3t0 t3
+}
+
+// Field values staged in shared memory for one thread: quad q (words 4q ..
+// 4q+3) of value v at base[(v * NW/4 + q) * stride].  With stride = the
+// block's thread count, a warp's 32 threads read 32 consecutive quads, 512
+// contiguous bytes, with no bank conflict.
+template <int NW>
+struct Staged {
+  uint4* base;
+  int stride;
+
+  __device__ __forceinline__ uint4* quad(int v, int q) const {
+    return base + (v * (NW / 4) + q) * stride;
+  }
+
+  __device__ __forceinline__ void load(int v, uint32_t w[NW]) const {
+#pragma unroll
+    for (int q = 0; q < NW / 4; ++q) {
+      const uint4 x = ptx::ld_shared_v4(quad(v, q));
+      w[4 * q] = x.x;
+      w[4 * q + 1] = x.y;
+      w[4 * q + 2] = x.z;
+      w[4 * q + 3] = x.w;
+    }
+  }
+
+  __device__ __forceinline__ void store(int v, const uint32_t w[NW]) const {
+#pragma unroll
+    for (int q = 0; q < NW / 4; ++q)
+      ptx::st_shared_v4(quad(v, q), make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]));
+  }
+};
+
+// r = (a*b [+ c*d]) * R^-1 mod p lazily (field.cuh, mont_row), with the
+// row operands a and c read from the staged values ia and ic, one quad
+// (four rows) per iteration of a loop that is not unrolled: the compiler
+// cannot interleave the rows of different products, so a product holds
+// only its sum, b, d and one quad of a and c in registers.
+template <int L, bool SUM>
+__device__ __forceinline__ void mont_staged(uint32_t r[L / 2], const Staged<L / 2>& S, int ia,
+                                            const uint32_t b[L / 2], int ic,
+                                            const uint32_t d[L / 2], const FieldConsts<L>& fc) {
+  constexpr int NW = L / 2;
+  uint32_t t[NW + 1];
+#pragma unroll
+  for (int j = 0; j <= NW; ++j) t[j] = 0u;
+#pragma unroll 1
+  for (int q = 0; q < NW / 4; ++q) {
+    const uint4 a = ptx::ld_shared_v4(S.quad(ia, q));
+    uint4 c = a;
+    if constexpr (SUM) c = ptx::ld_shared_v4(S.quad(ic, q));
+    mont_row<L, SUM>(t, a.x, b, c.x, d, fc);
+    mont_row<L, SUM>(t, a.y, b, c.y, d, fc);
+    mont_row<L, SUM>(t, a.z, b, c.z, d, fc);
+    mont_row<L, SUM>(t, a.w, b, c.w, d, fc);
+  }
+#pragma unroll
+  for (int j = 0; j < NW; ++j) r[j] = t[j];
+}
+
+// Staged values of rcb_add_staged: the inputs P = (X1 : Y1 : Z1) in 0-2
+// and Q = (X2 : Y2 : Z2) in 3-5, a sum of two coordinates in 6
+constexpr int STAGED_VALUES = 7;
+
+// rcb_add for the 12-word fields, shaped for the register file: the same
+// formula and the same canonical outputs, with
+// * the six input coordinates staged in shared memory and loaded where a
+//   product needs them, instead of 72 words held in registers until layer
+//   1's last product;
+// * every product interleaved with its reduction (mont_row: 13 words of
+//   sum, no 2*NW-word product arrays), its row operands read from shared
+//   memory a quad at a time (mont_staged);
+// * layer 3's six operands staged over the inputs, each loaded into
+//   registers only for the product that takes it whole, and each output
+//   leaving through emit(c, w) as soon as it is canonical.
+// Layer 1 holds at most five 12-word products and one sum in registers;
+// layer 3 two operands and a sum.
+template <int L, class Emit>
+__device__ __forceinline__ void rcb_add_staged(const Staged<L / 2>& S, int b3,
+                                               const FieldConsts<L>& fc, Emit&& emit) {
+  constexpr int NW = L / 2;
+  constexpr int SUMV = 6;
+  uint32_t t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], t5[NW];
+  // layer 1: six products of values below 2p, each below 2p
+  auto same = [&](uint32_t r[NW], int i) {  // P_i Q_i
+    uint32_t b[NW];
+    S.load(3 + i, b);
+    mont_staged<L, false>(r, S, i, b, i, b, fc);
+  };
+  auto cross = [&](uint32_t r[NW], int i, int j) {  // (P_i + P_j)(Q_i + Q_j)
+    uint32_t x[NW], y[NW], v[NW];
+    S.load(i, x);
+    S.load(j, y);
+    add_nr<NW>(v, x, y);
+    S.store(SUMV, v);
+    S.load(3 + i, x);
+    S.load(3 + j, y);
+    add_nr<NW>(v, x, y);
+    mont_staged<L, false>(r, S, SUMV, v, SUMV, v, fc);
+  };
+  same(t0, 0);
+  same(t1, 1);
+  same(t2, 2);
+  cross(t3, 0, 1);
+  cross(t4, 1, 2);
+  cross(t5, 0, 2);
+  sub_mod<NW>(t3, t3, t0, fc.p2);
+  sub_mod<NW>(t3, t3, t1, fc.p2);  // X1Y2 + X2Y1
+  sub_mod<NW>(t4, t4, t1, fc.p2);
+  sub_mod<NW>(t4, t4, t2, fc.p2);  // Y1Z2 + Y2Z1
+  sub_mod<NW>(t5, t5, t0, fc.p2);
+  sub_mod<NW>(t5, t5, t2, fc.p2);  // X1Z2 + X2Z1
+  // layer 2: the curve constant and the small multiples
+  mul_small2p<L>(t2, t2, b3, fc);  // 3b Z1Z2
+  mul_small2p<L>(t5, t5, b3, fc);  // 3b (X1Z2 + X2Z1)
+  {
+    uint32_t u[NW];
+    add_mod<NW>(u, t0, t0, fc.p2);
+    add_mod<NW>(t0, u, t0, fc.p2);   // 3 X1X2
+    add_mod<NW>(u, t1, t2, fc.p2);   // zs = Y1Y2 + 3b Z1Z2
+    sub_mod<NW>(t1, t1, t2, fc.p2);  // td = Y1Y2 - 3b Z1Z2
+    copy_w<NW>(t2, u);
+  }
+  // layer 3: three sums of two products, one reduction each, below
+  // 8p^2/R + p < 2.52p; two subtractions of p make each canonical.  The
+  // operands go to the input slots: 0 m3t0, 1 td, 2 zs, 3 t3, 4 t4, 5 b3t5.
+  S.store(0, t0);
+  S.store(1, t1);
+  S.store(2, t2);
+  S.store(3, t3);
+  S.store(4, t4);
+  S.store(5, t5);
+  // emit(c, (a*b + c*d) R^-1) for the slots ia, ib, ic, id; d negated
+  auto sum = [&](int c, int ia, int ib, int ic, int id, bool neg_d) {
+    uint32_t b[NW], d[NW], r[NW];
+    S.load(ib, b);
+    S.load(id, d);
+    if (neg_d) neg2p<L>(d, d, fc);  // in (0, 2p]
+    mont_staged<L, true>(r, S, ia, b, ic, d, fc);
+    csub<NW>(r, r, fc.p);
+    csub<NW>(r, r, fc.p);
+    emit(c, r);
+  };
+  sum(0, 3, 1, 4, 5, true);   // X3 = t3 td - t4 b3t5
+  sum(1, 5, 0, 1, 2, false);  // Y3 = b3t5 m3t0 + td zs
+  sum(2, 2, 4, 0, 3, false);  // Z3 = zs t4 + m3t0 t3
 }
 
 // 16-byte loads and stores of NW packed words (16-byte aligned)

@@ -23,12 +23,25 @@
 // double-and-add.  Two instances: L = 16 (BN254's Fq, 8 words) and L = 24
 // (the BLS12 base fields, 12 words; their p/R is 0.102 and 0.007 at
 // R = 2^384, below BN254's 0.189, so ec.cuh's lazy bounds hold for them).
+// The 12-word one stages its two points in shared memory and runs ec.cuh's
+// rcb_add_staged (products interleaved with their reductions, row operands
+// read from shared memory in a loop that is not unrolled), and the R^4
+// products interleaved too (mont_cios): at __launch_bounds__(128, 4) ptxas
+// fits it in 128 registers with no spills, 4 blocks per SM, where the
+// register form took 188 and 2 blocks (PERF.md).
 #include "ec.cuh"
 
 namespace zk {
 
+constexpr int ADD_THREADS = 128;
+
+// The 12-word instance stages the two input points in shared memory
+// (ecw::rcb_add_staged); the 8-word one keeps them in registers.
 template <int L>
-__global__ void __launch_bounds__(128)
+constexpr bool add_staged = L == 24;
+
+template <int L>
+__global__ void __launch_bounds__(ADD_THREADS)
     ec_add_complete_kernel(const int32_t* __restrict__ pa, const int32_t* __restrict__ pb,
                            int32_t* __restrict__ out, long long n, Bcast bc, int b3,
                            FieldConsts<L> fc) {
@@ -59,17 +72,74 @@ __global__ void __launch_bounds__(128)
 }
 
 template <int L>
+__global__ void __launch_bounds__(ADD_THREADS, 4)
+    ec_add_staged_kernel(const int32_t* __restrict__ pa, const int32_t* __restrict__ pb,
+                         int32_t* __restrict__ out, long long n, Bcast bc, int b3,
+                         FieldConsts<L> fc) {
+  constexpr int NW = L / 2;
+  __shared__ uint4 stage[ecw::STAGED_VALUES * (NW / 4) * ADD_THREADS];
+  const ecw::Staged<NW> st{stage + threadIdx.x, ADD_THREADS};
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    long long oa, ob;
+    bcast_offsets(bc, i, oa, ob);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      uint32_t w[NW];
+      load_elem<L>(w, pa + (oa * 3 + c) * L);
+      st.store(c, w);
+      load_elem<L>(w, pb + (ob * 3 + c) * L);
+      st.store(3 + c, w);
+    }
+    int32_t* o = out + i * 3 * L;
+    ecw::rcb_add_staged<L>(st, b3, fc, [&](int c, const uint32_t* w) {
+      uint32_t r[NW];  // times R^4, as in ec_add_complete_kernel
+      mont_cios<L>(r, w, fc.r4, fc);
+      csub<NW>(r, r, fc.p);
+      store_elem<L>(o + c * L, r);
+    });
+  }
+}
+
+// the add kernel of the instance at L limbs
+template <int L>
+auto add_kernel() {
+  if constexpr (add_staged<L>) {
+    return ec_add_staged_kernel<L>;
+  } else {
+    return ec_add_complete_kernel<L>;
+  }
+}
+
+template <int L>
 int launch_add(const int32_t* p, const int32_t* q, int32_t* out, long long n, const Bcast& bc,
                int b3, const uint32_t* consts, cudaStream_t s) {
   FieldConsts<L> fc = consts_from_host<L>(consts);
-  const int threads = 128;
-  long long want = (n + threads - 1) / threads;
+  long long want = (n + ADD_THREADS - 1) / ADD_THREADS;
   int blocks = (int)(want < (1LL << 20) ? want : (1LL << 20));
-  ec_add_complete_kernel<L><<<blocks, threads, 0, s>>>(p, q, out, n, bc, b3, fc);
+  add_kernel<L>()<<<blocks, ADD_THREADS, 0, s>>>(p, q, out, n, bc, b3, fc);
   return (int)cudaGetLastError();
 }
 
+template <int L>
+int occupancy(int* blocks, int* registers) {
+  cudaFuncAttributes attr;
+  cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, add_kernel<L>(), ADD_THREADS, 0);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, add_kernel<L>());
+  if (e == cudaSuccess) *registers = attr.numRegs;
+  return (int)e;
+}
+
 }  // namespace zk
+
+// resident blocks of ADD_THREADS threads per SM, and registers per thread,
+// of the add kernel at L limbs
+extern "C" int zk_ec_add_complete_occupancy(int L, int* blocks, int* registers) {
+  if (L == 16) return zk::occupancy<16>(blocks, registers);
+  if (L == 24) return zk::occupancy<24>(blocks, registers);
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" int zk_ec_add_complete(int L, const void* p, const void* q, void* out, long long n,
                                   int nd, const long long* shape, const long long* sa,

@@ -15,7 +15,7 @@
 // What bounds it on the H100: integer multiplies (12 products and 9
 // reductions per add, B*W*n_pad adds).  Design:
 // * the whole accumulation is Montgomery form: a first kernel converts the
-//   points once to packed 8-word Montgomery values (identity rows for the
+//   points once to packed NW-word Montgomery values (identity rows for the
 //   padding), the buckets start as the Montgomery identity, and the shared
 //   rcb_add of ec.cuh needs no R^4 corrections (12 products, 9
 //   reductions); each thread converts its row to canonical 16-bit limbs
@@ -34,11 +34,18 @@
 // * a step loads its bucket only after the previous step stored it, so
 //   equal digits on consecutive steps need no forwarding; the step's loads
 //   are short next to its twelve products, and other warps cover them;
-// * __launch_bounds__(128) with no minimum of blocks: ptxas gives 142
-//   registers and no spills (3 blocks per SM); asking for 4 blocks makes
-//   it spill.  The L = 24 instance (the BLS12 base fields, 12 words) is the
-//   same code with half as many words again in every value: ptxas gives it
-//   240 registers and no spills, so 2 blocks fit on an SM (PERF.md).
+// * __launch_bounds__(128) with no minimum of blocks: ptxas gives the
+//   8-word instance 142 registers and no spills (3 blocks per SM); asking
+//   for 4 blocks makes it spill;
+// * the 12-word instance (the BLS12 base fields) runs the formula shaped
+//   for the register file, ec.cuh's rcb_add_staged: the step's bucket and
+//   point go to shared memory (7 values of 48 B per thread with the
+//   formula's scratch, 42 KB per block), each product is interleaved with
+//   its reduction and reads its row operands from there a quad at a time,
+//   in a loop the compiler does not unroll.  ptxas gives it 126 registers
+//   and no spills, so 4 blocks fit on an SM (the same code held in
+//   registers took 240 and 2 blocks); the same staging at 8 words took
+//   longer than the register form, so that instance keeps it (PERF.md).
 #include "ec.cuh"
 
 namespace zk {
@@ -65,6 +72,11 @@ __global__ void to_montgomery_kernel(const int32_t* __restrict__ pts, long long 
   }
 }
 
+// The 12-word instance stages each step's bucket and point in shared memory
+// (ecw::rcb_add_staged); the 8-word one keeps them in registers.
+template <int L>
+constexpr bool acc_staged = L == 24;
+
 template <int L>
 __global__ void __launch_bounds__(ACC_THREADS)
     bucket_accumulate_kernel(const uint32_t* __restrict__ pm, const int16_t* __restrict__ digits,
@@ -90,25 +102,53 @@ __global__ void __launch_bounds__(ACC_THREADS)
     ecw::store_words<NW>(buckets + k * SLOT + 2 * NW, zero);
   }
 
-  for (long long j = 0; j < S; ++j) {
-    const int code = drow[j * G];
-    const int k = code < 0 ? ~code : code;
-    const uint32_t* q = pcol + j * G * 3 * NW;
-    uint32_t X2[NW], Y2[NW], Z2[NW];
-    ecw::load_words<NW>(X2, q);
-    ecw::load_words<NW>(Y2, q + NW);
-    ecw::load_words<NW>(Z2, q + 2 * NW);
-    if (code < 0) ecw::neg_canon<L>(Y2, Y2, fc);  // -P = (X : -Y : Z)
-    uint32_t* b = buckets + k * SLOT;
-    uint32_t X1[NW], Y1[NW], Z1[NW];
-    ecw::load_words<NW>(X1, b);
-    ecw::load_words<NW>(Y1, b + NW);
-    ecw::load_words<NW>(Z1, b + 2 * NW);
-    uint32_t X3[NW], Y3[NW], Z3[NW];
-    ecw::rcb_add<L>(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2, b3, fc);
-    ecw::store_words<NW>(b, X3);
-    ecw::store_words<NW>(b + NW, Y3);
-    ecw::store_words<NW>(b + 2 * NW, Z3);
+  if constexpr (acc_staged<L>) {
+    // this thread's bucket (values 0-2) and point (3-5), and rcb_add_staged's
+    // scratch value
+    __shared__ uint4 stage[ecw::STAGED_VALUES * (NW / 4) * ACC_THREADS];
+    const ecw::Staged<NW> st{stage + threadIdx.x, ACC_THREADS};
+    for (long long j = 0; j < S; ++j) {
+      const int code = drow[j * G];
+      const int k = code < 0 ? ~code : code;
+      const uint4* q = reinterpret_cast<const uint4*>(pcol + j * G * 3 * NW);
+      uint32_t* b = buckets + k * SLOT;
+      const uint4* bv = reinterpret_cast<const uint4*>(b);
+#pragma unroll
+      for (int i = 0; i < 3 * (NW / 4); ++i) {
+        ptx::st_shared_v4(st.quad(0, i), bv[i]);
+        ptx::st_shared_v4(st.quad(3, i), q[i]);
+      }
+      if (code < 0) {  // -P = (X : -Y : Z)
+        uint32_t y[NW];
+        st.load(4, y);
+        ecw::neg_canon<L>(y, y, fc);
+        st.store(4, y);
+      }
+      ecw::rcb_add_staged<L>(st, b3, fc, [&](int c, const uint32_t* w) {
+        ecw::store_words<NW>(b + c * NW, w);
+      });
+    }
+  } else {
+    for (long long j = 0; j < S; ++j) {
+      const int code = drow[j * G];
+      const int k = code < 0 ? ~code : code;
+      const uint32_t* q = pcol + j * G * 3 * NW;
+      uint32_t X2[NW], Y2[NW], Z2[NW];
+      ecw::load_words<NW>(X2, q);
+      ecw::load_words<NW>(Y2, q + NW);
+      ecw::load_words<NW>(Z2, q + 2 * NW);
+      if (code < 0) ecw::neg_canon<L>(Y2, Y2, fc);  // -P = (X : -Y : Z)
+      uint32_t* b = buckets + k * SLOT;
+      uint32_t X1[NW], Y1[NW], Z1[NW];
+      ecw::load_words<NW>(X1, b);
+      ecw::load_words<NW>(Y1, b + NW);
+      ecw::load_words<NW>(Z1, b + 2 * NW);
+      uint32_t X3[NW], Y3[NW], Z3[NW];
+      ecw::rcb_add<L>(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2, b3, fc);
+      ecw::store_words<NW>(b, X3);
+      ecw::store_words<NW>(b + NW, Y3);
+      ecw::store_words<NW>(b + 2 * NW, Z3);
+    }
   }
 
   // out of Montgomery form, into the slot's canonical 16-bit limbs
@@ -149,7 +189,25 @@ int launch_accumulate(const int32_t* points, long long n, uint32_t* pm, const in
   return (int)cudaGetLastError();
 }
 
+template <int L>
+int occupancy(int* blocks, int* registers) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, bucket_accumulate_kernel<L>, ACC_THREADS, 0);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, bucket_accumulate_kernel<L>);
+  if (e == cudaSuccess) *registers = attr.numRegs;
+  return (int)e;
+}
+
 }  // namespace zk
+
+// resident blocks of ACC_THREADS threads per SM, and registers per thread,
+// of the accumulation kernel at L limbs
+extern "C" int zk_ec_bucket_accumulate_occupancy(int L, int* blocks, int* registers) {
+  if (L == 16) return zk::occupancy<16>(blocks, registers);
+  if (L == 24) return zk::occupancy<24>(blocks, registers);
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" int zk_ec_bucket_accumulate(int L, const void* points, long long n, void* pm,
                                        const void* digits, void* out, int G, int BW, int K,

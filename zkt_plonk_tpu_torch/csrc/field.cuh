@@ -121,8 +121,10 @@ __device__ __forceinline__ void store_elem(int32_t* dst, const uint32_t w[L / 2]
 // madc.hi.cc chains compiled to a multiply plus a carry add per word and
 // made the EC kernels take 11-17% longer (PERF.md).  A Montgomery product is
 // a full 2*NW-word product (wide_mul) and a separate reduction (redc), so a
-// sum of two products can share one reduction (ec.cuh).  Every field the
-// kernels take has 2p < R (checked by the wrappers, _cuda.field_consts).
+// sum of two products can share one reduction (ec.cuh), or, where registers
+// are short (the EC kernels at 12 words), the same product interleaved with
+// its reduction row by row (mont_row).  Every field the kernels take has
+// 2p < R (checked by the wrappers, _cuda.field_consts).
 // ---------------------------------------------------------------------------
 
 template <int NW>
@@ -232,6 +234,67 @@ __device__ __forceinline__ void redc(uint32_t r[L / 2], const uint32_t T[L],
 #pragma unroll
   for (int j = 1; j < NW - 1; ++j) r[j] = ptx::addc_cc(T[NW + j], u[NW + j]);
   r[NW - 1] = ptx::addc(T[2 * NW - 1], u[2 * NW - 1]);
+}
+
+// Montgomery products interleaved with their reduction row by row (CIOS)
+// on NW + 1 words of sum t: no 2*NW-word product array, so a 12-word
+// product holds 13 words of sum beside its operands.  Row i adds a_i*b
+// [+ c_i*d] and then the multiple m*p that clears word 0, and shifts t
+// down one word; a sum of two products takes one reduction.  Bounds, for
+// a, c < R and b, d <= 2p: before row i, t < b + d + p, and a row adds
+// below 2^32 (b + d + p), so NW + 1 words hold it while 5p < R (checked by
+// _cuda.ec_field_consts).  After NW rows t = (a*b + c*d + M*p) / R < (a*b +
+// c*d)/R + p, for the one M < R that makes the sum divisible by R: word
+// for word redc(wide_mul(a, b) [+ wide_mul(c, d)]), below (2p)^2/R + p < 2p
+// for one product of values below 2p, below 8p^2/R + p for a sum.
+template <int L, bool SUM>
+__device__ __forceinline__ void mont_row(uint32_t t[L / 2 + 1], uint32_t ai,
+                                         const uint32_t b[L / 2], uint32_t ci,
+                                         const uint32_t d[L / 2], const FieldConsts<L>& fc) {
+  constexpr int NW = L / 2;
+  uint32_t cy = 0;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const uint64_t s = (uint64_t)ai * b[j] + t[j] + cy;
+    t[j] = (uint32_t)s;
+    cy = (uint32_t)(s >> 32);
+  }
+  t[NW] += cy;
+  if constexpr (SUM) {
+    cy = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const uint64_t s = (uint64_t)ci * d[j] + t[j] + cy;
+      t[j] = (uint32_t)s;
+      cy = (uint32_t)(s >> 32);
+    }
+    t[NW] += cy;
+  }
+  const uint32_t m = t[0] * fc.pinv;
+  cy = (uint32_t)(((uint64_t)m * fc.p[0] + t[0]) >> 32);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) {
+    const uint64_t s = (uint64_t)m * fc.p[j] + t[j] + cy;
+    t[j - 1] = (uint32_t)s;
+    cy = (uint32_t)(s >> 32);
+  }
+  const uint64_t s = (uint64_t)t[NW] + cy;
+  t[NW - 1] = (uint32_t)s;
+  t[NW] = (uint32_t)(s >> 32);
+}
+
+// r = a * b * R^-1 mod p lazily (r < 2p for a, b < 2p), by rows
+template <int L>
+__device__ __forceinline__ void mont_cios(uint32_t r[L / 2], const uint32_t a[L / 2],
+                                          const uint32_t b[L / 2], const FieldConsts<L>& fc) {
+  constexpr int NW = L / 2;
+  uint32_t t[NW + 1];
+#pragma unroll
+  for (int j = 0; j <= NW; ++j) t[j] = 0u;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) mont_row<L, false>(t, a[i], b, 0u, b, fc);
+#pragma unroll
+  for (int j = 0; j < NW; ++j) r[j] = t[j];
 }
 
 // r = a * b * R^-1 mod p, lazily: r < a*b/R + p (< 2p for a*b < pR);

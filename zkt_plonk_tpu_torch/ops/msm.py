@@ -82,26 +82,46 @@ def msm_window_size(n: int, c: int = 0) -> int:
     return 4 if n <= (1 << 12) else 8
 
 
-# Bucket rows (G * B * W threads of K4a) that the G rule aims at; from the
-# sweep of tools/sweep_msm_groups.py on an H100 (PERF.md): K4a and the
-# commit are fastest between 32,768 and 49,152 rows at every batch size
-# (a full residency is 50,688: 3 blocks of 128 threads on each of 132 SMs).
-ACC_ROWS = 40960
+# Resident blocks per SM of K4a's ACC_THREADS-thread blocks on an H100's
+# 132 SMs, per instance (limb count), from ptxas's register count of each
+# (PERF.md).  chip_smoke.py holds the table against the card's occupancy
+# call (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a table rather than
+# the call, so that the CPU path picks the same G as the card.
+ACC_THREADS = 128
+ACC_SMS = 132
+ACC_RESIDENT_BLOCKS = {16: 3, 24: 4}
+# The G rule aims at this share of an instance's resident bucket rows, and
+# at no more than ACC_ROWS_MAX rows.  From the sweeps of
+# tools/sweep_msm_groups.py (PERF.md): the 8-word instance (3 blocks, 50,688
+# rows) and the 12-word one at 4 blocks (67,584 rows) are fastest between
+# 32,768 and 49,152 rows at every batch size; the 12-word one at 2 blocks
+# (33,792 rows) was fastest at 81% of them.  Past that, more rows only add
+# per-row work and group-merge adds.
+ACC_ROW_SHARE = 0.81
+ACC_ROWS_MAX = 40960
 
 
-def group_count(n: int, c: int, batch: int, windows: int) -> int:
+def resident_rows(limbs: int) -> int:
+    """K4a's bucket rows (threads) resident at once on the card at L limbs."""
+    return ACC_RESIDENT_BLOCKS[limbs] * ACC_THREADS * ACC_SMS
+
+
+def group_count(n: int, c: int, batch: int, windows: int, limbs: int) -> int:
     """The bucket group count G for B = ``batch`` MSMs of ``windows`` windows
-    over n points: a power of two, the smaller of
-    * ACC_ROWS / (B*W): enough K4a threads to keep the card busy, and few
-      enough that the per-row work (K bucket initialisations and
-      conversions in K4a, G*B*W*K adds in the group merge) stays small;
+    over n points, with K4a's instance at ``limbs`` limbs: a power of two,
+    the smaller of
+    * min(ACC_ROW_SHARE * resident_rows(limbs), ACC_ROWS_MAX) / (B*W):
+      enough K4a threads to keep the card busy in one wave, and few enough
+      that the per-row work (K bucket initialisations and conversions in
+      K4a, G*B*W*K adds in the group merge) stays small;
     * n / (B*K): the group merge adds no more points than one scalar's
       accumulation (n*W), which bounds G for small n.
     At n = 2^18 + 4, c = 8 it gives G = 1024, 512, 512, 256 and 128 for
-    B = 1, 2, 3, 6 and 10 (measured best: 1024, 512, 352, 256, 128).
+    B = 1, 2, 3, 6 and 10 at L = 16 and at L = 24.
     """
     K = (1 << (c - 1)) + 1
-    by_rows = np.log2(ACC_ROWS / (batch * windows))
+    rows = min(ACC_ROW_SHARE * resident_rows(limbs), ACC_ROWS_MAX)
+    by_rows = np.log2(rows / (batch * windows))
     by_merge = np.log2(max(n / (batch * K), 1.0))
     return 1 << max(0, min(round(by_rows), round(by_merge)))
 
@@ -265,7 +285,8 @@ def msm_totals(
     sc = scalars if batched else scalars[None]
     n = points.shape[0]
     c = msm_window_size(n, c)
-    G = groups if groups > 0 else group_count(n, c, sc.shape[0], num_windows(fr_bits + 1, c))
+    W = num_windows(fr_bits + 1, c)
+    G = groups if groups > 0 else group_count(n, c, sc.shape[0], W, fq_spec.n_limbs)
     buckets = _accumulate(fq_spec, b3, points, sc, fr_bits, c, G)
     totals = _reduce_buckets(fq_spec, b3, buckets)
     totals = totals.reshape(sc.shape[0], -1, 3, fq_spec.n_limbs)

@@ -21,9 +21,10 @@ coordinates), sets up the SRS, compiles, proves once to warm up, then
   2. proves a third time under ``torch.profiler`` and sums the device time
      of every kernel by name; each NTT runs inside a ``record_function``
      range, whose span on the device (first kernel to last, gaps included)
-     is reported apart; busy time over the
-     wall time of that proof gives the device's busy share (profiling slows
-     the host, so that proof's wall time is longer than the unprofiled one).
+     is reported apart, and so are the MSM's EC kernels K4a and K4; busy
+     time over the wall time of that proof gives the device's busy share
+     (profiling slows the host, so that proof's wall time is longer than the
+     unprofiled one).
 The card's name and power limit are printed beside the numbers, and the
 whole record is written as JSON to ``--out``.
 """
@@ -39,6 +40,14 @@ import time
 from collections import defaultdict
 
 import torch
+
+
+# device kernel names of the MSM's EC kernels (csrc/ec_bucket_accumulate.cu,
+# csrc/ec_add_complete.cu), both instances
+EC_KERNELS = {
+    "K4a": ("bucket_accumulate_kernel",),
+    "K4": ("ec_add_complete_kernel", "ec_add_staged_kernel"),
+}
 
 
 def _sync():
@@ -180,6 +189,11 @@ def main() -> int:
             kernels[evt.key][1] += evt.count
     busy = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:20]
+    # the MSM's EC kernels: K4a (bucket accumulation) and K4 (merges, scans)
+    ec_kernels = {}
+    for label, names in EC_KERNELS.items():
+        hits = [v for k, v in kernels.items() if any(n in k for n in names)]
+        ec_kernels[label] = {"seconds": sum(v[0] for v in hits), "calls": sum(v[1] for v in hits)}
 
     record = {
         "device": torch.cuda.get_device_name(0),
@@ -195,6 +209,7 @@ def main() -> int:
         "profiled_prove_wall_s": prof_wall,
         "device_busy_s": busy,
         "device_busy_share": busy / prof_wall if prof_wall else None,
+        "ec_kernels": ec_kernels,
         "top_device_ops": [
             {"name": k, "seconds": v[0], "calls": v[1], "share_of_busy": v[0] / busy}
             for k, v in top
@@ -211,6 +226,8 @@ def main() -> int:
         print(f"  phase {k:16s} {v:.4f} s")
     print(f"profiled prove wall {prof_wall:.3f} s, device busy {busy:.3f} s "
           f"({100 * busy / prof_wall:.1f}%), NTT device span {ntt_span_s * 1e3:.3f} ms")
+    for label, v in ec_kernels.items():
+        print(f"  {label}: {v['seconds'] * 1e3:.2f} ms device in {v['calls']} calls")
     for k, v in top:
         print(f"  {v[0] * 1e3:10.2f} ms {v[1]:7d} calls  {k[:90]}")
     return 0
