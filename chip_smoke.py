@@ -35,10 +35,17 @@ Phases, one line each:
   4. golden   — the TinyCircuit proof on the card: 802 bytes, fixed sha256;
   5. withdraw — the withdraw circuit at HEIGHT=48, NOTES=3, TABLE=1024
                 (n = 2^18) on BN254: SRS setup, compile, cold and warm
-                prove, verify, a tampered public input that must raise, the
-                launch count of every kernel instance over this main path,
-                and the launches inside each of its NTTs (D of K3, nothing
-                else);
+                prove, verify, the warm proof again through ShardedProver
+                on a world-size-1 NCCL mesh (cold, then warm; the same
+                bytes; it verifies), a tampered public input that must
+                raise, the launch count of every kernel instance over this
+                main path, and the launches inside each of its NTTs (D of
+                K3, nothing else); then BatchProver with 3 rows sharing the
+                card (a size-1 NCCL group and a CUDA stream each, rows in
+                threads) on one witness with 3 proof seeds, each proof
+                byte-equal to the single-device proof of its seed, its
+                proofs/s against the same 3 proofs one after another
+                (sequential, batch, batch, sequential);
   6. poseidon — device Poseidon (width 4, every add and multiply a K1
                 launch) on one level of a 2^17-leaf Merkle tree (2^16 pair
                 rows) plus a short row, and on the short row alone, bit for
@@ -55,7 +62,8 @@ Phases, one line each:
                 transcript (48-byte coordinates): the same instance with
                 Poseidon constants generated for BLS12-381's Fr, SRS of
                 2^20 + 1 points at L = 24, K2 and K3 in their strict mode
-                (the launches inside each NTT: D of ntt_col_pass/strict);
+                (the launches inside each NTT: D of ntt_col_pass/strict),
+                and one ShardedProver proof at D = 1, byte-equal;
   9. matrix   — IPA commits on the card against the plain versions on the
                 CPU (m = 2^12 on BN254, 2^10 on BLS12-381) and against the
                 host MSM at m = 2^8; then the five configurations of
@@ -63,8 +71,15 @@ Phases, one line each:
                 BLS12-377; KZG on both BLS12 curves): each proves on the
                 card and on the CPU with equal fields, verifies, and fails
                 its tamper probes; the KZG proofs' bytes have fixed sha256;
+ 10. sharded_d2 — two processes on the one card over gloo, every exchange
+                staged through host memory (NCCL refuses two ranks on one
+                GPU): a chain circuit at n = 2^11 proved by ShardedProver
+                at D = 2 (the all-to-alls, global butterfly stages, rolls,
+                flips, scans and the cross-rank MSM tree on CUDA tensors),
+                byte-equal to the single-device proof, with each rank's
+                launches;
 then one JSON line of kernel records, one per instance (launches summed
-over the main paths of phases 5-9, each counted from zero around its own
+over the main paths of phases 5-10, each counted from zero around its own
 run), nvidia-smi's line, and the result line.
 """
 
@@ -789,16 +804,21 @@ def withdraw(dev, height=48, notes=3, table_size=1024, curve="bn254"):
     t0 = time.perf_counter()
     compiled = inst.compile(circuit, ck, cvk)
     compile_s = clock(t0)
-    rng = random.Random(42)
     t0 = time.perf_counter()
-    inst.prove(compiled, circuit, rng=rng)
+    inst.prove(compiled, circuit, rng=random.Random(42))
     cold_s = clock(t0)
+    before = dict(_cuda.launches)
     t0 = time.perf_counter()
-    proof = inst.prove(compiled, circuit, rng=rng)
+    proof = inst.prove(compiled, circuit, rng=random.Random(WARM_SEED))
     warm_s = clock(t0)
+    single_launches = launch_delta(before)
     t0 = time.perf_counter()
     inst.verify(compiled, proof, pub_inputs)
     verify_s = clock(t0)
+    # the same proof through ShardedProver on a world-size-1 NCCL mesh: the
+    # same bytes, each transform still D launches of K3
+    sharded_proofs(phase, dev, inst, compiled, circuit, pub_inputs, proof_bytes(inst, proof),
+                   warm_s, single_launches)
     launches = dict(_cuda.launches)
     ntt_mr.transform = inner
     try:
@@ -815,7 +835,174 @@ def withdraw(dev, height=48, notes=3, table_size=1024, curve="bn254"):
     say("ntt", transforms=sum(per_transform.values()), launches_per_transform=dict(per_transform))
     if bad:
         raise AssertionError(f"transforms that launched more than their D passes of K3: {bad}")
-    return launches, (cold_s, warm_s)
+    paths = {phase: launches}
+    if curve == "bn254":
+        paths["withdraw_batch"] = batch_phase(dev, inst, compiled, circuit, pub_inputs)
+    return paths, (cold_s, warm_s)
+
+
+WARM_SEED = 43
+BATCH_ROWS = 3
+
+
+def proof_bytes(inst, proof) -> bytes:
+    from zkt_plonk_tpu_torch.utils import arkserde
+
+    return arkserde.proof_to_bytes(proof, inst.ctx.curve.fq.modulus, inst.ctx.curve.fr.modulus)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """The default process group of this process alone, over NCCL (the
+    card's transport), torn down on exit."""
+    import torch.distributed as dist
+
+    from zkt_plonk_tpu_torch import parallel
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: loopback only
+    parallel.init_distributed("nccl", init_method=f"tcp://localhost:{free_port()}",
+                              world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def launch_delta(before):
+    """The launches since ``before`` (a copy of ``_cuda.launches``), by instance."""
+    from zkt_plonk_tpu_torch import _cuda
+
+    return {k: v - before[k] for k, v in _cuda.launches.items() if v != before[k]}
+
+
+def sharded_proofs(phase, dev, inst, compiled, circuit, pub_inputs, want, single_warm_s,
+                   single_launches):
+    """Two proofs (cold, then warm) through ``ShardedProver`` at D = 1 over
+    NCCL, then the single-device warm proof again, each with a fresh
+    ``random.Random(WARM_SEED)``: every one the bytes of the single-device
+    proof of that seed; the sharded proof verifies.  Prints the seconds and
+    the launches of each warm proof."""
+    from zkt_plonk_tpu_torch import _cuda, parallel
+
+    secs = []
+    with world_of_one():
+        t0 = time.perf_counter()
+        mesh = parallel.make_mesh(device=dev)
+        sp = parallel.ShardedProver(inst.prover(compiled), mesh)
+        for _ in range(2):
+            before = dict(_cuda.launches)
+            proof = inst.prove(compiled, circuit, rng=random.Random(WARM_SEED), prover=sp)
+            torch.cuda.synchronize()
+            secs.append(round(time.perf_counter() - t0, 3))
+            if proof_bytes(inst, proof) != want:
+                raise AssertionError(f"{phase}: the D = 1 sharded proof differs from the single-device proof")
+            t0 = time.perf_counter()
+        sharded_launches = launch_delta(before)
+        inst.verify(compiled, proof, pub_inputs)
+        transport = mesh.transport
+    t0 = time.perf_counter()
+    again = inst.prove(compiled, circuit, rng=random.Random(WARM_SEED))
+    torch.cuda.synchronize()
+    single_again_s = round(time.perf_counter() - t0, 3)
+    if proof_bytes(inst, again) != want:
+        raise AssertionError(f"{phase}: the single-device proof changed between two runs")
+    say(phase, sharded=f"D={mesh.D}", transport=transport, sharded_prove_cold_warm_s=secs,
+        single_device_warm_s=[single_warm_s, single_again_s], bytes_equal=True, verified=True,
+        nvidia_smi=f"'{nvidia_smi_line()}'")
+    say(phase, launches_per_warm_proof=json.dumps({"single_device": single_launches,
+                                                   "sharded_d1": sharded_launches}))
+
+
+def device_busy_share(fn):
+    """The share of ``fn``'s wall time, run once under ``torch.profiler``,
+    in which the card ran a kernel or a copy: the union of the device
+    intervals of the trace over the wall time (the profiler slows the host,
+    so the share is a lower bound's neighbour, not the unprofiled one).
+    None when the trace holds no device interval."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="zkt-trace-") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not spans:
+        return None
+    busy, lo, hi = 0.0, spans[0][0], spans[0][1]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    return round(busy / 1e6 / wall, 4)
+
+
+def batch_phase(dev, inst, compiled, circuit, pub_inputs, k=BATCH_ROWS):
+    """``BatchProver`` with k rows sharing the card (world size 1, a size-1
+    NCCL group and a CUDA stream per row) on one witness with k proof seeds,
+    against the same k proofs proved one after another: sequential, batch,
+    batch, sequential, then each once more under the profiler for the
+    card's busy share.  Each batch proof is byte-equal to the single-device
+    proof of its seed.  Returns the launches of the six runs."""
+    from zkt_plonk_tpu_torch import _cuda, parallel
+
+    seeds = [100 + i for i in range(k)]
+    with world_of_one():
+        mesh2d = parallel.make_mesh((k, 1), ("data", "poly"), device=dev)
+        bp = parallel.BatchProver(inst.prover(compiled), mesh2d)
+
+        def sequential():
+            return [inst.prove(compiled, circuit, rng=random.Random(s)) for s in seeds]
+
+        def batch():
+            statements = [inst.statement(compiled, circuit) for _ in seeds]
+            return bp.prove_batch([c for c, _ in statements], [t for _, t in statements],
+                                  [random.Random(s) for s in seeds])
+
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        want = None
+        secs = {"sequential": [], "batch": []}
+        for run, fn in (("sequential", sequential), ("batch", batch), ("batch", batch),
+                        ("sequential", sequential)):
+            t0 = time.perf_counter()
+            proofs = fn()
+            torch.cuda.synchronize()
+            secs[run].append(round(time.perf_counter() - t0, 3))
+            got = [proof_bytes(inst, pr) for pr in proofs]
+            want = want or got
+            if got != want:
+                raise AssertionError(f"{run} proofs differ from the single-device proofs of their seeds")
+            if run == "batch" and len(secs["batch"]) == 1:
+                inst.verify(compiled, proofs[-1], pub_inputs)
+        busy = {run: device_busy_share(fn) for run, fn in (("sequential", sequential), ("batch", batch))}
+        launches = dict(_cuda.launches)
+        transports = sorted({m.transport for m in mesh2d.rows})
+    seq_rate = k / (sum(secs["sequential"]) / 2)
+    batch_rate = k / (sum(secs["batch"]) / 2)
+    say("withdraw_batch", rows=k, seeds=seeds, transport=transports, sequential_s=secs["sequential"],
+        batch_s=secs["batch"], sequential_proofs_per_s=round(seq_rate, 3),
+        batch_proofs_per_s=round(batch_rate, 3), ratio=round(batch_rate / seq_rate, 3),
+        bytes_equal=True, verified=True,
+        device_busy_share=json.dumps({r: "not measured" if v is None else v for r, v in busy.items()}),
+        nvidia_smi=f"'{nvidia_smi_line()}'")
+    return launches
 
 
 def poseidon(dev):
@@ -1129,6 +1316,140 @@ def ipa_commits(dev):
             equal=True)
 
 
+class ChainCircuit:
+    """k rounds of x <- x*x + a from x = a = 2, the result public, a in the
+    lookup table: 2k + 1 gates, n = 2^11 at k = SHARDED_D2_ROUNDS."""
+
+    def __init__(self, k: int):
+        self.k = k
+
+    def synthesize(self, cs):
+        from zkt_plonk_tpu_torch.cs import lt
+
+        a = cs.assign_variable(2)
+        x = a
+        for _ in range(self.k):
+            x = cs.add_gate(lt(cs.mul_gate(lt(x), lt(x))), lt(a))
+        cs.set_variable_public(lt(x))
+        cs.lookup_constrain(lt(a))
+
+    def public_inputs(self, p: int):
+        x = 2
+        for _ in range(self.k):
+            x = (x * x + 2) % p
+        return [x]
+
+
+SHARDED_D2_ROUNDS = 900
+SHARDED_D2_SEED = 5
+
+
+def chain_instance(dev, k):
+    """The chain circuit's instance and keys on ``dev`` (the same on every
+    process: the SRS comes from a fixed tau)."""
+    from zkt_plonk_tpu_torch.commitment import kzg
+    from zkt_plonk_tpu_torch.cs import ConstraintSystem, LookupTable
+    from zkt_plonk_tpu_torch.plonk import ZKTPlonk
+
+    circuit = ChainCircuit(k)
+    inst = ZKTPlonk(curve="bn254", table=LookupTable([1, 2, 5], size=63), device=dev)
+    cs = ConstraintSystem(inst.p, setup=True, lookup_table=inst.table)
+    circuit.synthesize(cs)
+    ck, cvk = kzg.setup(inst.ctx, max_degree=4 * cs.circuit_bound(), tau=2718281828, device=dev)
+    return circuit, inst, inst.compile(circuit, ck, cvk)
+
+
+def sharded_d2_rank(rank, port, k, device, results):
+    """One of the two ranks of phase ``sharded_d2``: gloo between two
+    processes on one card, every exchange staged through host memory."""
+    import traceback
+
+    try:
+        import torch.distributed as dist
+
+        from zkt_plonk_tpu_torch import _cuda, parallel
+
+        dev = torch.device(device)
+        torch.set_num_threads(1)
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host: loopback only
+        parallel.init_distributed("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+        try:
+            circuit, inst, compiled = chain_instance(dev, k)
+            prover = inst.prover(compiled)
+            mesh = parallel.make_mesh(device=dev)
+            sp = parallel.ShardedProver(prover, mesh)
+            composer, transcript = inst.statement(compiled, circuit)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            proof = sp.prove(composer, transcript, random.Random(SHARDED_D2_SEED))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            secs = round(time.perf_counter() - t0, 3)
+            launches = {name: v for name, v in _cuda.launches.items() if v}
+            out = dict(bytes=proof_bytes(inst, proof), launches=launches, D=mesh.D, d=mesh.d,
+                       transport=mesh.transport, n=prover.n, prove_s=secs)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, out))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+
+
+def sharded_d2(dev, k=SHARDED_D2_ROUNDS):
+    """Two processes on the one card over gloo, host-staged: the chain
+    circuit's proof at D = 2 (all-to-alls, global butterfly stages, rolls,
+    flips, scans and the cross-rank MSM tree on CUDA tensors), byte-equal to
+    the single-device proof of the same seed.  Returns the two ranks'
+    launches."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=sharded_d2_rank, args=(r, port, k, str(dev), results))
+             for r in range(2)]
+    for proc in procs:
+        proc.start()
+    try:
+        circuit, inst, compiled = chain_instance(dev, k)
+        t0 = time.perf_counter()
+        proof = inst.prove(compiled, circuit, rng=random.Random(SHARDED_D2_SEED))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        single_s = round(time.perf_counter() - t0, 3)
+        inst.verify(compiled, proof, circuit.public_inputs(inst.p))
+        want = proof_bytes(inst, proof)
+        got = {}
+        while len(got) < 2:
+            try:
+                rank, out = results.get(timeout=300)
+            except queue.Empty:
+                raise AssertionError("sharded_d2: a rank did not report within 300 s") from None
+            if isinstance(out, str):
+                raise AssertionError(f"sharded_d2 rank {rank} failed:\n{out}")
+            got[rank] = out
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=30)
+    launches = {}
+    for rank in (0, 1):
+        out = got[rank]
+        if out["bytes"] != want:
+            raise AssertionError(f"sharded_d2: rank {rank}'s proof differs from the single-device proof")
+        say("sharded_d2", rank=rank, D=out["D"], d=out["d"], transport=out["transport"], n=out["n"],
+            prove_s=out["prove_s"], single_device_cold_s=single_s, bytes_equal=True,
+            launches=json.dumps(out["launches"]))
+        for name, v in out["launches"].items():
+            launches[name] = launches.get(name, 0) + v
+    return launches
+
+
 def sass_mix() -> None:
     """Each kernel function's SASS instruction count, split into the integer
     multiply pipe (IMAD*) and the integer ALU pipe (IADD3, LOP3, SEL, ...),
@@ -1197,7 +1518,8 @@ def occupancy_report() -> None:
                     f"msm.ACC_RESIDENT_BLOCKS says {msm.ACC_RESIDENT_BLOCKS[L]}")
 
 
-PHASES = ("parity", "golden", "withdraw", "poseidon", "cli", "bls12_withdraw", "matrix")
+PHASES = ("parity", "golden", "withdraw", "poseidon", "cli", "bls12_withdraw", "matrix",
+          "sharded_d2")
 
 
 def main() -> int:
@@ -1251,17 +1573,23 @@ def main() -> int:
     if "golden" in phases:
         golden(dev)
     if "withdraw" in phases:
-        paths["withdraw"], eth_prove_s = withdraw(dev)
+        found, eth_prove_s = withdraw(dev)
+        paths.update(found)
+        say("total", after="withdraw", wall_s=round(time.perf_counter() - T_START, 1))
     if "poseidon" in phases:
         paths["poseidon"] = poseidon(dev)
     if "cli" in phases:
         paths["cli"] = cli_phase(dev, eth_prove_s)
     if "bls12_withdraw" in phases:
-        paths["bls12_withdraw"], _ = withdraw(dev, curve="bls12_381")
+        paths.update(withdraw(dev, curve="bls12_381")[0])
+        say("total", after="bls12_withdraw", wall_s=round(time.perf_counter() - T_START, 1))
     if "matrix" in phases:
         _cuda.reset_launches()
         ipa_commits(dev)
         paths["matrix"] = matrix(dev)
+    if "sharded_d2" in phases:
+        paths["sharded_d2"] = sharded_d2(dev)
+        say("total", after="sharded_d2", wall_s=round(time.perf_counter() - T_START, 1))
     launches = {k: 0 for k in _cuda.INSTANCES}
     for name, path_launches in paths.items():
         say("launches", path=name, **{k: v for k, v in path_launches.items() if v})

@@ -16,7 +16,7 @@
     and proves the same bytes;
 and the port imports with neither ``jax`` nor ``zkt_plonk_tpu`` loaded,
 as a whole and module by module for the CLI's modules, the IPA, the
-scheme dispatch and the withdraw instance.
+scheme dispatch, the withdraw instance and the parallel layer.
 """
 
 import copy
@@ -230,7 +230,7 @@ def test_merlin_proof_bytes_match_jax():
 
 @pytest.mark.parametrize("module", [
     "cli", "config", "utils.serialize", "transcript.merlin", "hashing.poseidon.device",
-    "commitment.ipa", "commitment.scheme", "circuits.withdraw_instance",
+    "commitment.ipa", "commitment.scheme", "circuits.withdraw_instance", "parallel",
 ])
 def test_cli_modules_import_without_jax(module):
     code = (

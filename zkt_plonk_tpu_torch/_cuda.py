@@ -8,7 +8,8 @@ Nothing here runs at import time.
 
 ``launches`` holds one plain integer per kernel instance (``INSTANCES``):
 a wrapper adds one to the instance it launches, where it launches it, and
-nowhere else.  An instance is a kernel at one limb count and reduction
+nowhere else, through ``count``, which holds a lock so that the counts
+stay exact when several threads launch at once (``parallel.BatchProver``).  An instance is a kernel at one limb count and reduction
 mode: ``ec_add_complete`` is K4 at L = 16, ``ec_add_complete/L24`` K4 at
 L = 24 (the BLS12 base fields), ``ntt_col_pass/strict`` K3 in its strict
 mode (``reduction_consts``).
@@ -48,12 +49,20 @@ INSTANCES = KERNELS + EXTRA_INSTANCES
 launches: Dict[str, int] = {name: 0 for name in INSTANCES}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+def count(name: str) -> None:
+    """Add one launch of instance ``name`` (from ``instance``)."""
+    with _count_lock:
+        launches[name] += 1
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def instance(kernel: str, L: int = 16, strict: bool = False) -> str:

@@ -254,7 +254,7 @@ def binop(spec: FieldSpec, op: str, a: torch.Tensor, b: torch.Tensor) -> torch.T
         _cuda.field_consts(spec), _cuda.stream_ptr(a),
     )
     _cuda.check(err, "fp_binop")
-    _cuda.launches[_cuda.instance("fp_binop", L)] += 1
+    _cuda.count(_cuda.instance("fp_binop", L))
     return out
 
 
@@ -287,5 +287,5 @@ def pow_chain(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
         int(strict), consts, _cuda.stream_ptr(a),
     )
     _cuda.check(err, "fp_pow_chain")
-    _cuda.launches[_cuda.instance("fp_pow_chain", strict=strict)] += 1
+    _cuda.count(_cuda.instance("fp_pow_chain", strict=strict))
     return out

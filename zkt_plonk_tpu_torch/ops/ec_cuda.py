@@ -100,5 +100,5 @@ def add(spec: FieldSpec, b3: torch.Tensor, b3_int: int, p: torch.Tensor, q: torc
         b3_int, _cuda.ec_field_consts(spec), _cuda.stream_ptr(p),
     )
     _cuda.check(err, "ec_add_complete")
-    _cuda.launches[_cuda.instance("ec_add_complete", L)] += 1
+    _cuda.count(_cuda.instance("ec_add_complete", L))
     return out

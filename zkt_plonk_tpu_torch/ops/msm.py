@@ -211,7 +211,7 @@ def bucket_accumulate(
         G, BW, K, n_pad // G, b3.value, _cuda.ec_field_consts(spec), _cuda.stream_ptr(points),
     )
     _cuda.check(err, "ec_bucket_accumulate")
-    _cuda.launches[_cuda.instance("ec_bucket_accumulate", L)] += 1
+    _cuda.count(_cuda.instance("ec_bucket_accumulate", L))
     return out
 
 

@@ -458,7 +458,7 @@ def fused_pass(spec: FieldSpec, plan: DevicePlan, d: int, x: torch.Tensor, nb: i
         int(strict), consts, _cuda.stream_ptr(x),
     )
     _cuda.check(err, "ntt_col_pass")
-    _cuda.launches[_cuda.instance("ntt_col_pass", strict=strict)] += 1
+    _cuda.count(_cuda.instance("ntt_col_pass", strict=strict))
     return out
 
 

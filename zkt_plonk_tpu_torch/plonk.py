@@ -70,27 +70,40 @@ class ZKTPlonk:
         pk, epk, vk = setup_mod.setup(ck_t, cs.setup, self.table, bound, extend=extend)
         return CompiledCircuit(ck=ck_t, cvk=cvk_t, pk=pk, epk=epk, vk=vk)
 
+    def statement(self, compiled: CompiledCircuit, circuit: Circuit):
+        """What a prover's ``prove`` takes besides the rng: the proving
+        composer of ``circuit``'s witness and the transcript seeded with
+        ``compiled``'s verifier key (a ``parallel.BatchProver`` takes one
+        of each per proof)."""
+        cs = ConstraintSystem(self.p, setup=False, lookup_table=self.table)
+        circuit.synthesize(cs)
+        transcript = self.transcript_factory(TRANSCRIPT_LABEL)
+        compiled.vk.seed_transcript(transcript)
+        return cs.proving, transcript
+
+    def prover(self, compiled: CompiledCircuit) -> Prover:
+        """``compiled``'s single-device prover, built on first use."""
+        if compiled._prover is None:
+            compiled._prover = Prover(
+                compiled.ck, compiled.pk, compiled.epk, compiled.vk, self.table
+            )
+        return compiled._prover
+
     def prove(
         self,
         compiled: CompiledCircuit,
         circuit: Circuit,
         rng: Optional[random.Random] = None,
+        prover=None,
     ) -> Proof:
         """Produce a proof.  All proof randomness (the ZK blinders) flows
         through ``rng``: with ``random.Random(seed)`` the proof bytes are a
-        pure function of (keys, witness, seed)."""
+        pure function of (keys, witness, seed).  ``prover`` may be a
+        ``parallel.ShardedProver`` of ``compiled``'s circuit; the proof
+        bytes are the same."""
         rng = rng if rng is not None else random.Random()
-        cs = ConstraintSystem(self.p, setup=False, lookup_table=self.table)
-        circuit.synthesize(cs)
-
-        transcript = self.transcript_factory(TRANSCRIPT_LABEL)
-        compiled.vk.seed_transcript(transcript)
-
-        if compiled._prover is None:
-            compiled._prover = Prover(
-                compiled.ck, compiled.pk, compiled.epk, compiled.vk, self.table
-            )
-        return compiled._prover.prove(cs.proving, transcript, rng)
+        composer, transcript = self.statement(compiled, circuit)
+        return (prover or self.prover(compiled)).prove(composer, transcript, rng)
 
     def verify(self, compiled: CompiledCircuit, proof: Proof, pub_inputs: List[int]) -> None:
         """Raises ``VerificationError`` (or AssertionError) on failure."""

@@ -15,6 +15,12 @@ prover.py``:
 
 Every device array is an int32 limb tensor on the committer key's device;
 round intermediates are dropped as soon as the round's commitments are out.
+
+``RoundSchedule`` holds the host side of a proof (staging, blinders,
+challenges, each round's scalars, the linearization) and
+``grand_products``/``quotient_evals`` the pointwise arithmetic of rounds 3
+and 4; ``Prover`` and ``parallel.ShardedProver`` share them and differ only
+in where the rows live.
 """
 
 from __future__ import annotations
@@ -43,48 +49,172 @@ def _pad4(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, 0, 4))
 
 
-class Prover:
-    """Proves for one compiled circuit (fixed n) on the keys' device."""
+class LocalRows:
+    """The operations of the rounds along the domain's row axis (-2) when a
+    tensor holds all n rows; ``parallel.prover.ShardedRows`` does them on a
+    mesh's row blocks."""
 
-    def __init__(self, ck, pk: ProverKey, epk: ExtendedProverKey, vk: VerifierKey,
-                 lookup_table: LookupTable):
-        from ..commitment import scheme as scheme_mod
+    holds_row0 = True
 
-        if epk is None:
-            from .setup import extend_prover_key_from_pk
+    @staticmethod
+    def roll(x: torch.Tensor, shift: int) -> torch.Tensor:
+        return torch.roll(x, shift, dims=-2)
 
-            epk = extend_prover_key_from_pk(ck, pk)
-        self.ck = ck
-        self.pk = pk
-        self.epk = epk
-        self.vk = vk
-        self.table = lookup_table
-        self.ctx = ck.ctx
-        self.device = ck.device
-        self.n = pk.n
-        self.domain = make_domain(self.ctx.curve.fr, self.n)
-        self.spec = self.domain.spec
-        self.p = self.spec.modulus
-        self.scheme = scheme_mod.for_key(ck)
-        self.committer = self.scheme.committer(ck)
-        self.plan = self.domain.plan(self.device)
-        self.q4 = self.domain.quarter_plan(self.device)
-        self.pk_padded = {name: _pad4(pk.polys[name]) for name in PK_NAMES}
-        self.t_ints = self.table.into_multiset(self.n)
-        self.t_dev = self.rows(self.t_ints)
+    @staticmethod
+    def batch_inverse(spec, x: torch.Tensor) -> torch.Tensor:
+        """(B, n, L): one batch inversion over all B*n values."""
+        return fd.batch_inverse(spec, x.reshape(-1, x.shape[-1]), axis=0).reshape(x.shape)
+
+    @staticmethod
+    def prefix_products(spec, x: torch.Tensor) -> torch.Tensor:
+        return fd.prefix_products(spec, x, axis=-2)
+
+
+def grand_products(spec, rows, wires, f, t, h1, h2, roots, sigmas, scalars) -> torch.Tensor:
+    """Evaluations of z1 (permutation) and z2 (lookup), (2, rows, L), on the
+    rows that ``rows`` (``LocalRows`` or a sharded counterpart) holds.
+
+    scalars: (8, L) [beta, beta*K1, beta*K2, gamma, delta, eps(1+d),
+    1+delta, epsilon]."""
+    a, b, c = wires[0], wires[1], wires[2]
+    s1, s2, s3 = sigmas[0], sigmas[1], sigmas[2]
+    beta, bk1, bk2, gamma, delta, eps_1pd, one_pd, epsilon = scalars.unbind(0)
+    t_next = rows.roll(t, -1)
+    h1_next = rows.roll(h1, -1)
+
+    lhs1 = torch.stack([roots, roots, roots, s1, s2, s3, t_next, h2, h1_next])
+    rhs1 = torch.stack([beta, bk1, bk2, beta, beta, beta, delta, delta, delta])[:, None]
+    bx, bx1, bx2, bs1, bs2, bs3, dtn, dh2, dh1n = fd.mul(spec, lhs1, rhs1).unbind(0)
+
+    ad = lambda x, y: fd.add(spec, x, y)
+    num1 = ad(ad(bx, a), gamma)
+    num2 = ad(ad(bx1, b), gamma)
+    num3 = ad(ad(bx2, c), gamma)
+    den1 = ad(ad(bs1, a), gamma)
+    den2 = ad(ad(bs2, b), gamma)
+    den3 = ad(ad(bs3, c), gamma)
+    t2f = ad(ad(dtn, eps_1pd), t)
+    epf = ad(epsilon, f)
+    zd1 = ad(ad(dh2, eps_1pd), h1)
+    zd2 = ad(ad(dh1n, eps_1pd), h2)
+
+    p2 = fd.mul(spec, torch.stack([num1, den1, epf, zd1]), torch.stack([num2, den2, t2f, zd2]))
+    p3 = fd.mul(
+        spec,
+        p2[:3],
+        torch.stack([num3, den3, one_pd.expand_as(num3)]),
+    )
+    z1_num, z1_den, z2_num = p3.unbind(0)
+    z2_den = p2[3]
+
+    dens_inv = rows.batch_inverse(spec, torch.stack([z1_den, z2_den]))
+    ratios = fd.mul(spec, torch.stack([z1_num, z2_num]), dens_inv)
+    shifted = rows.roll(ratios, 1)
+    if rows.holds_row0:
+        shifted[:, 0] = fd.one(spec, (), device=shifted.device)
+    return rows.prefix_products(spec, shifted)
+
+
+def quotient_evals(spec, rows, cs, coset, x_coset, l1_coset, zh_coset_inv, sc, weights):
+    """The quotient's values on the interleaved 4n coset, (4, rows, L), from
+    the coset values cs (9, 4, rows, L) of [a,b,c,z1,z2,t,h1,h2,pi]; "next"
+    taps (+4 on the 4n coset) are +1 rolls inside each subdomain.
+
+    sc: (7, L) [beta, beta*K1, beta*K2, gamma, delta, epsilon, eps(1+d)];
+    weights: (7, L) [alpha, alpha, a3(1+d), a3, a^2, a^4, a^5]."""
+    one = fd.one(spec, (), device=cs.device)
+    a, b, c, z1, z2, t, h1, h2, pi = cs.unbind(0)
+    z1n = rows.roll(z1, -1)
+    z2n = rows.roll(z2, -1)
+    tn = rows.roll(t, -1)
+    h1n = rows.roll(h1, -1)
+
+    ad = lambda x, y: fd.add(spec, x, y)
+    sb = lambda x, y: fd.sub(spec, x, y)
+    beta, bk1, bk2, gamma, delta, epsilon, eps_1pd = sc.unbind(0)
+    x4, c4 = x_coset, coset
+
+    def bc(s):
+        return s.expand_as(a)
+
+    p1 = fd.mul(
+        spec,
+        torch.stack([a, x4, x4, x4, c4["sigma1"], c4["sigma2"], c4["sigma3"],
+                     c4["q_lookup"], tn, h2, h1n]),
+        torch.stack([b, bc(beta), bc(bk1), bc(bk2), bc(beta), bc(beta), bc(beta),
+                     c, bc(delta), bc(delta), bc(delta)]),
+    )
+    ab, bx, bx1, bx2, bs1, bs2, bs3, qlc, dtn, dh2, dh1n = p1.unbind(0)
+    del p1
+
+    p2 = fd.mul(
+        spec,
+        torch.stack([ab, a, b, c,
+                     ad(ad(bx, a), gamma), ad(ad(bs1, a), gamma),
+                     ad(ad(eps_1pd, t), dtn), ad(ad(eps_1pd, h1), dh2),
+                     c4["q_table"], sb(z1, one), sb(z2, one)]),
+        torch.stack([c4["q_m"], c4["q_l"], c4["q_r"], c4["q_o"],
+                     ad(ad(bx1, b), gamma), ad(ad(bs2, b), gamma),
+                     ad(epsilon, qlc), ad(ad(eps_1pd, h2), dh1n),
+                     t, l1_coset, l1_coset]),
+    )
+    abqm, aql, bqr, cqo, p1a, p2a, tq, hh, qtt, l1z1, l1z2 = p2.unbind(0)
+    del p2
+
+    p3 = fd.mul(
+        spec,
+        torch.stack([p1a, p2a]),
+        torch.stack([ad(ad(bx2, c), gamma), ad(ad(bs3, c), gamma)]),
+    )
+    p4 = fd.mul(
+        spec,
+        torch.stack([z1, z1n, z2, z2n]),
+        torch.stack([p3[0], p3[1], tq, hh]),
+    )
+    p5 = fd.mul(
+        spec,
+        torch.stack([p4[0], p4[1], p4[2], p4[3], l1z1, l1z2, qtt]),
+        weights[:, None, None, :],
+    )
+    del p3, p4, cs
+
+    arith = ad(ad(ad(abqm, aql), ad(bqr, cqo)), ad(c4["q_c"], pi))
+    perm = ad(sb(p5[0], p5[1]), p5[4])
+    lookup = ad(ad(sb(p5[2], p5[3]), p5[5]), p5[6])
+    del p5
+
+    # zh on the coset depends only on the subdomain j: (4, L) scalars
+    return fd.mul(spec, ad(ad(arith, perm), lookup), zh_coset_inv[:, None, :])
+
+
+class RoundSchedule:
+    """The host side of a proof, shared by ``Prover`` and
+    ``parallel.ShardedProver``: the witness and its staging, the blinders in
+    their order, the transcript's challenges, each round's scalars and the
+    linearization.
+
+    A subclass sets ``n``, ``p``, ``spec``, ``device``, ``domain``, ``epk``,
+    ``t_ints``, ``t_dev``, ``pk_padded`` and ``row_block`` (the rows of the
+    domain it holds) and gives the device rounds (``commit_batch``,
+    ``commit_many``, ``z_round``, ``quotient_round``, ``evaluate``,
+    ``linearize``, ``openings``) and ``stack``, which stacks polynomials of
+    its batches as ``torch.stack`` does (a batch indexes its polynomials as
+    a (B, n+4, L) tensor does)."""
+
+    stack = staticmethod(torch.stack)
 
     # ------------------------------------------------------------------
     # host <-> device staging
     # ------------------------------------------------------------------
 
     def rows(self, ints: List[int]) -> torch.Tensor:
-        """Host ints -> (n, L) int32 tensor on the device."""
-        arr = ints_to_array(ints, self.spec.n_limbs).astype(np.int32)
-        return torch.from_numpy(arr).to(self.device)
+        """This prover's rows of n host ints -> (rows, L) int32 tensor."""
+        return self.stack_rows([ints])[0]
 
     def stack_rows(self, cols) -> torch.Tensor:
-        arr = np.stack([ints_to_array(col, self.spec.n_limbs) for col in cols]).astype(np.int32)
-        return torch.from_numpy(arr).to(self.device)
+        lo, hi = self.row_block
+        arr = np.stack([ints_to_array(col[lo:hi], self.spec.n_limbs) for col in cols])
+        return torch.from_numpy(arr.astype(np.int32)).to(self.device)
 
     def vec(self, vals: List[int]) -> torch.Tensor:
         """Host scalars -> (k, L) int32 tensor on the device."""
@@ -96,179 +226,6 @@ class Prover:
         for k in counts:
             rows.append([rng.randrange(self.p) for _ in range(k)] + [0] * (4 - k))
         return torch.stack([self.vec(r) for r in rows])
-
-    # ------------------------------------------------------------------
-    # device rounds
-    # ------------------------------------------------------------------
-
-    def commit_batch(self, evals: torch.Tensor, blinders: torch.Tensor) -> torch.Tensor:
-        """iNTT a (B, n, L) batch, pad to n+4 and add the blinding terms
-        b(X) * (X^n - 1) (blinders (B, 4, L))."""
-        n, spec = self.n, self.spec
-        padded = _pad4(ntt.ifft(spec, self.plan, evals))
-        padded[:, n : n + 4] = blinders
-        padded[:, :4] = fd.sub(spec, padded[:, :4], blinders)
-        return padded
-
-    def z_round(self, wires, f, t, h1, h2, scalars, blinders) -> torch.Tensor:
-        """Grand products z1 (permutation) and z2 (lookup), committed form.
-
-        scalars: (8, L) [beta, beta*K1, beta*K2, gamma, delta, eps(1+d),
-        1+delta, epsilon]."""
-        spec, n, epk = self.spec, self.n, self.epk
-        a, b, c = wires[0], wires[1], wires[2]
-        roots = epk.roots
-        s1, s2, s3 = epk.sigma_evals[0], epk.sigma_evals[1], epk.sigma_evals[2]
-        beta, bk1, bk2, gamma, delta, eps_1pd, one_pd, epsilon = scalars.unbind(0)
-        t_next = torch.roll(t, -1, dims=0)
-        h1_next = torch.roll(h1, -1, dims=0)
-
-        lhs1 = torch.stack([roots, roots, roots, s1, s2, s3, t_next, h2, h1_next])
-        rhs1 = torch.stack([beta, bk1, bk2, beta, beta, beta, delta, delta, delta])[:, None]
-        bx, bx1, bx2, bs1, bs2, bs3, dtn, dh2, dh1n = fd.mul(spec, lhs1, rhs1).unbind(0)
-
-        ad = lambda x, y: fd.add(spec, x, y)
-        num1 = ad(ad(bx, a), gamma)
-        num2 = ad(ad(bx1, b), gamma)
-        num3 = ad(ad(bx2, c), gamma)
-        den1 = ad(ad(bs1, a), gamma)
-        den2 = ad(ad(bs2, b), gamma)
-        den3 = ad(ad(bs3, c), gamma)
-        t2f = ad(ad(dtn, eps_1pd), t)
-        epf = ad(epsilon, f)
-        zd1 = ad(ad(dh2, eps_1pd), h1)
-        zd2 = ad(ad(dh1n, eps_1pd), h2)
-
-        p2 = fd.mul(spec, torch.stack([num1, den1, epf, zd1]), torch.stack([num2, den2, t2f, zd2]))
-        p3 = fd.mul(
-            spec,
-            p2[:3],
-            torch.stack([num3, den3, one_pd.expand_as(num3)]),
-        )
-        z1_num, z1_den, z2_num = p3.unbind(0)
-        z2_den = p2[3]
-
-        dens = torch.stack([z1_den, z2_den])
-        dens_inv = fd.batch_inverse(spec, dens.reshape(2 * n, -1), axis=0).reshape(dens.shape)
-        ratios = fd.mul(spec, torch.stack([z1_num, z2_num]), dens_inv)
-        shifted = torch.roll(ratios, 1, dims=1)
-        shifted[:, 0] = fd.one(spec, (), device=self.device)
-        z_evals = fd.prefix_products(spec, shifted, axis=1)
-        return self.commit_batch(z_evals, blinders)
-
-    def quotient_round(self, polys8, pi_evals, sc, weights, qblinders) -> torch.Tensor:
-        """polys8: (8, n+4, L) [a,b,c,z1,z2,t,h1,h2] -> (3, n+4, L) q_lo/mid/hi.
-
-        Runs on the interleaved 4n coset — every array is (..., 4, n, L);
-        "next" taps (+4 on the 4n coset) are +1 rolls inside each subdomain.
-        """
-        spec, epk = self.spec, self.epk
-        c4 = epk.coset
-        one = fd.one(spec, (), device=self.device)
-        pi_poly = ntt.ifft(spec, self.plan, pi_evals)  # (n, L)
-        nine = torch.cat([polys8, _pad4(pi_poly)[None]])  # (9, n+4, L)
-        cs = ntt.coset4_fft(spec, self.plan, self.q4, nine)  # (9, 4, n, L)
-        del nine
-        a, b, c, z1, z2, t, h1, h2, pi = cs.unbind(0)
-        z1n = torch.roll(z1, -1, dims=-2)
-        z2n = torch.roll(z2, -1, dims=-2)
-        tn = torch.roll(t, -1, dims=-2)
-        h1n = torch.roll(h1, -1, dims=-2)
-
-        ad = lambda x, y: fd.add(spec, x, y)
-        sb = lambda x, y: fd.sub(spec, x, y)
-        beta, bk1, bk2, gamma, delta, epsilon, eps_1pd = sc.unbind(0)
-        x4 = epk.x_coset
-
-        def bc(s):
-            return s.expand_as(a)
-
-        p1 = fd.mul(
-            spec,
-            torch.stack([a, x4, x4, x4, c4["sigma1"], c4["sigma2"], c4["sigma3"],
-                         c4["q_lookup"], tn, h2, h1n]),
-            torch.stack([b, bc(beta), bc(bk1), bc(bk2), bc(beta), bc(beta), bc(beta),
-                         c, bc(delta), bc(delta), bc(delta)]),
-        )
-        ab, bx, bx1, bx2, bs1, bs2, bs3, qlc, dtn, dh2, dh1n = p1.unbind(0)
-        del p1
-
-        p2 = fd.mul(
-            spec,
-            torch.stack([ab, a, b, c,
-                         ad(ad(bx, a), gamma), ad(ad(bs1, a), gamma),
-                         ad(ad(eps_1pd, t), dtn), ad(ad(eps_1pd, h1), dh2),
-                         c4["q_table"], sb(z1, one), sb(z2, one)]),
-            torch.stack([c4["q_m"], c4["q_l"], c4["q_r"], c4["q_o"],
-                         ad(ad(bx1, b), gamma), ad(ad(bs2, b), gamma),
-                         ad(epsilon, qlc), ad(ad(eps_1pd, h2), dh1n),
-                         t, epk.l1_coset, epk.l1_coset]),
-        )
-        abqm, aql, bqr, cqo, p1a, p2a, tq, hh, qtt, l1z1, l1z2 = p2.unbind(0)
-        del p2
-
-        p3 = fd.mul(
-            spec,
-            torch.stack([p1a, p2a]),
-            torch.stack([ad(ad(bx2, c), gamma), ad(ad(bs3, c), gamma)]),
-        )
-        p4 = fd.mul(
-            spec,
-            torch.stack([z1, z1n, z2, z2n]),
-            torch.stack([p3[0], p3[1], tq, hh]),
-        )
-        # weights: (7, L) = [alpha, alpha, a3(1+d), a3, a^2, a^4, a^5]
-        p5 = fd.mul(
-            spec,
-            torch.stack([p4[0], p4[1], p4[2], p4[3], l1z1, l1z2, qtt]),
-            weights[:, None, None, :],
-        )
-        del p3, p4, cs
-
-        arith = ad(ad(ad(abqm, aql), ad(bqr, cqo)), ad(c4["q_c"], pi))
-        perm = ad(sb(p5[0], p5[1]), p5[4])
-        lookup = ad(ad(sb(p5[2], p5[3]), p5[5]), p5[6])
-        del p5
-
-        # zh on the coset depends only on the subdomain j: (4, L) scalars
-        q_evals = fd.mul(spec, ad(ad(arith, perm), lookup), epk.zh_coset_inv[:, None, :])
-        qrows = ntt.coset4_ifft(spec, self.plan, self.q4, q_evals)  # (4, n, L)
-        q0, q1, q2, q3 = qrows.unbind(0)
-
-        # split q into q_lo/q_mid/q_hi of n+2 coeffs each + boundary
-        # blinders (``prove.rs:287-300``); row t holds q[tn:(t+1)n]
-        b0, b1 = qblinders[0], qblinders[1]
-        zrow = torch.zeros_like(b0)[None]
-        q_lo = torch.cat([q0, q1[:2], b0[None], zrow])  # (n+4, L)
-        q_mid = torch.cat([q1[2:], q2[:4], b1[None], zrow])
-        q_mid[0] = fd.sub(spec, q_mid[0], b0)
-        q_hi = torch.cat([q2[4:], q3[:8]])
-        q_hi[0] = fd.sub(spec, q_hi[0], b1)
-        return torch.stack([q_lo, q_mid, q_hi])  # (3, n+4, L)
-
-    def evaluate(self, polys_xi, polys_wxi, xi: int, wxi: int):
-        spec, n = self.spec, self.n
-        xi_powers = fd.powers(spec, self.vec([xi])[0], n + 4)
-        wxi_powers = fd.powers(spec, self.vec([wxi])[0], n + 4)
-        return _eval_many(spec, polys_xi, xi_powers), _eval_many(spec, polys_wxi, wxi_powers)
-
-    def linearize(self, polys13: torch.Tensor, scalars13: torch.Tensor) -> torch.Tensor:
-        terms = fd.mul(self.spec, polys13, scalars13[:, None, :])
-        return _sum_rows(self.spec, terms)
-
-    def open_batch(self, polys: torch.Tensor, point: int, eta: int) -> torch.Tensor:
-        """eta-fold the polys and divide by (X - point): the KZG witness."""
-        from ..commitment import kzg
-
-        spec, p = self.spec, self.p
-        m = polys.shape[1]
-        eta_powers = self.vec([pow(eta, i, p) for i in range(polys.shape[0])])
-        pt_powers = fd.powers(spec, self.vec([point])[0], m)
-        pt_inv = pow(point, -1, p)
-        # [pt^-1, pt^-2, ..., pt^-m]
-        pt_inv_powers = fd.mul(spec, fd.powers(spec, self.vec([pt_inv])[0], m), self.vec([pt_inv])[0])
-        folded = _sum_rows(spec, fd.mul(spec, polys, eta_powers[:, None, :]))
-        return kzg.divide_by_linear(spec, folded, pt_powers, pt_inv_powers)
 
     # ------------------------------------------------------------------
     # host orchestration
@@ -289,10 +246,9 @@ class Prover:
         wire_blinders = self.blinders(rng, [2, 2, 2])
 
         # --- round 2 witness ------------------------------------------
-        t_ints = self.t_ints
         ql = self.epk.q_lookup_evals_host
         f_ints = [(ql[i] * c_ints[i]) % p for i in range(n)]
-        h1_ints, h2_ints = combine_split(t_ints, f_ints)
+        h1_ints, h2_ints = combine_split(self.t_ints, f_ints)
         h1_ints += [0] * (n - len(h1_ints))
         h2_ints += [0] * (n - len(h2_ints))
         lookup_evals = torch.cat([self.t_dev[None], self.stack_rows([h1_ints, h2_ints])])
@@ -303,7 +259,7 @@ class Prover:
             six_polys = self.commit_batch(
                 torch.cat([wires, lookup_evals]), torch.cat([wire_blinders, lookup_blinders])
             )
-            six_aff = self.committer.commit_many(six_polys)
+            six_aff = self.commit_many(six_polys)
         abc_polys, th_polys = six_polys[:3], six_polys[3:]
         abc_aff, th_aff = six_aff[:3], six_aff[3:]
         transcript.append_commitment("a_commit", abc_aff[0])
@@ -331,14 +287,14 @@ class Prover:
                 z_scalars, z_blinders,
             )
             del wires, lookup_evals
-            z_aff = self.committer.commit_many(z_polys)
+            z_aff = self.commit_many(z_polys)
         transcript.append_commitment("z1_commit", z_aff[0])
         transcript.append_commitment("z2_commit", z_aff[1])
 
         # --- round 4: quotient ----------------------------------------
         alpha = transcript.challenge_scalar("alpha")
         pi_evals = self.rows(composer.pi_as_evals(n))
-        polys8 = torch.stack(
+        polys8 = self.stack(
             [abc_polys[0], abc_polys[1], abc_polys[2], z_polys[0], z_polys[1],
              th_polys[0], th_polys[1], th_polys[2]]
         )
@@ -352,7 +308,7 @@ class Prover:
         with section("round4 quotient", sync=dev):
             q_polys = self.quotient_round(polys8, pi_evals, q_scalars, q_weights, q_blinders)
             del polys8
-            q_aff = self.committer.commit_many(q_polys)
+            q_aff = self.commit_many(q_polys)
         transcript.append_commitment("q_lo_commit", q_aff[0])
         transcript.append_commitment("q_mid_commit", q_aff[1])
         transcript.append_commitment("q_hi_commit", q_aff[2])
@@ -362,11 +318,11 @@ class Prover:
         wxi = xi * self.domain.group_gen % p
         pkp = self.pk_padded
 
-        polys_xi = torch.stack(
+        polys_xi = self.stack(
             [abc_polys[0], abc_polys[1], abc_polys[2], pkp["sigma1"], pkp["sigma2"],
              pkp["q_lookup"], th_polys[0], th_polys[2]]
         )
-        polys_wxi = torch.stack([z_polys[0], th_polys[0], z_polys[1], th_polys[1]])  # z1, t, z2, h1
+        polys_wxi = self.stack([z_polys[0], th_polys[0], z_polys[1], th_polys[1]])  # z1, t, z2, h1
         with section("round5 evaluations", sync=dev):
             ev_xi, ev_wxi = self.evaluate(polys_xi, polys_wxi, xi, wxi)
             ev_xi_i = spec.decode(ev_xi.cpu().numpy())
@@ -396,18 +352,17 @@ class Prover:
             pkp, abc_polys, z_polys, th_polys, q_polys,
         )
         with section("linearization", sync=dev):
-            r_poly = self.linearize(torch.stack(poly_list), self.vec(scalars))
+            r_poly = self.linearize(self.stack(poly_list), self.vec(scalars))
 
         # --- openings --------------------------------------------------
         eta = transcript.challenge_scalar("eta")
-        aw_polys = torch.stack(
+        aw_polys = self.stack(
             [r_poly, abc_polys[0], abc_polys[1], abc_polys[2], pkp["sigma1"], pkp["sigma2"],
              pkp["q_lookup"], th_polys[0], th_polys[2]]
         )
-        saw_polys = torch.stack([z_polys[0], z_polys[1], th_polys[0], th_polys[1]])
+        saw_polys = self.stack([z_polys[0], z_polys[1], th_polys[0], th_polys[1]])
         with section("openings", sync=dev):
-            aw_aff = self.scheme.open_batch(self, aw_polys, xi, eta, b"aw")
-            saw_aff = self.scheme.open_batch(self, saw_polys, wxi, eta, b"saw")
+            aw_aff, saw_aff = self.openings(aw_polys, xi, saw_polys, wxi, eta)
 
         return Proof(
             a_commit=abc_aff[0],
@@ -498,6 +453,119 @@ class Prover:
         polys.append(q_polys[2])
 
         return scalars, polys
+
+
+class Prover(RoundSchedule):
+    """Proves for one compiled circuit (fixed n) on the keys' device."""
+
+    row_ops = LocalRows
+
+    def __init__(self, ck, pk: ProverKey, epk: ExtendedProverKey, vk: VerifierKey,
+                 lookup_table: LookupTable):
+        from ..commitment import scheme as scheme_mod
+
+        if epk is None:
+            from .setup import extend_prover_key_from_pk
+
+            epk = extend_prover_key_from_pk(ck, pk)
+        self.ck = ck
+        self.pk = pk
+        self.epk = epk
+        self.vk = vk
+        self.table = lookup_table
+        self.ctx = ck.ctx
+        self.device = ck.device
+        self.n = pk.n
+        self.row_block = (0, self.n)
+        self.domain = make_domain(self.ctx.curve.fr, self.n)
+        self.spec = self.domain.spec
+        self.p = self.spec.modulus
+        self.scheme = scheme_mod.for_key(ck)
+        self.committer = self.scheme.committer(ck)
+        self.plan = self.domain.plan(self.device)
+        self.q4 = self.domain.quarter_plan(self.device)
+        self.pk_padded = {name: _pad4(pk.polys[name]) for name in PK_NAMES}
+        self.t_ints = self.table.into_multiset(self.n)
+        self.t_dev = self.rows(self.t_ints)
+
+    # ------------------------------------------------------------------
+    # device rounds
+    # ------------------------------------------------------------------
+
+    def commit_batch(self, evals: torch.Tensor, blinders: torch.Tensor) -> torch.Tensor:
+        """iNTT a (B, n, L) batch, pad to n+4 and add the blinding terms
+        b(X) * (X^n - 1) (blinders (B, 4, L))."""
+        n, spec = self.n, self.spec
+        padded = _pad4(ntt.ifft(spec, self.plan, evals))
+        padded[:, n : n + 4] = blinders
+        padded[:, :4] = fd.sub(spec, padded[:, :4], blinders)
+        return padded
+
+    def commit_many(self, polys: torch.Tensor) -> list:
+        return self.committer.commit_many(polys)
+
+    def z_round(self, wires, f, t, h1, h2, scalars, blinders) -> torch.Tensor:
+        """Grand products z1 (permutation) and z2 (lookup), committed form."""
+        epk = self.epk
+        z_evals = grand_products(self.spec, self.row_ops, wires, f, t, h1, h2,
+                                 epk.roots, epk.sigma_evals, scalars)
+        return self.commit_batch(z_evals, blinders)
+
+    def quotient_round(self, polys8, pi_evals, sc, weights, qblinders) -> torch.Tensor:
+        """polys8: (8, n+4, L) [a,b,c,z1,z2,t,h1,h2] -> (3, n+4, L) q_lo/mid/hi.
+
+        Runs on the interleaved 4n coset — every array is (..., 4, n, L).
+        """
+        spec, epk = self.spec, self.epk
+        pi_poly = ntt.ifft(spec, self.plan, pi_evals)  # (n, L)
+        nine = torch.cat([polys8, _pad4(pi_poly)[None]])  # (9, n+4, L)
+        cs = ntt.coset4_fft(spec, self.plan, self.q4, nine)  # (9, 4, n, L)
+        del nine
+        q_evals = quotient_evals(spec, self.row_ops, cs, epk.coset, epk.x_coset, epk.l1_coset,
+                                 epk.zh_coset_inv, sc, weights)
+        del cs
+        qrows = ntt.coset4_ifft(spec, self.plan, self.q4, q_evals)  # (4, n, L)
+        q0, q1, q2, q3 = qrows.unbind(0)
+
+        # split q into q_lo/q_mid/q_hi of n+2 coeffs each + boundary
+        # blinders (``prove.rs:287-300``); row t holds q[tn:(t+1)n]
+        b0, b1 = qblinders[0], qblinders[1]
+        zrow = torch.zeros_like(b0)[None]
+        q_lo = torch.cat([q0, q1[:2], b0[None], zrow])  # (n+4, L)
+        q_mid = torch.cat([q1[2:], q2[:4], b1[None], zrow])
+        q_mid[0] = fd.sub(spec, q_mid[0], b0)
+        q_hi = torch.cat([q2[4:], q3[:8]])
+        q_hi[0] = fd.sub(spec, q_hi[0], b1)
+        return torch.stack([q_lo, q_mid, q_hi])  # (3, n+4, L)
+
+    def evaluate(self, polys_xi, polys_wxi, xi: int, wxi: int):
+        spec, n = self.spec, self.n
+        xi_powers = fd.powers(spec, self.vec([xi])[0], n + 4)
+        wxi_powers = fd.powers(spec, self.vec([wxi])[0], n + 4)
+        return _eval_many(spec, polys_xi, xi_powers), _eval_many(spec, polys_wxi, wxi_powers)
+
+    def linearize(self, polys13: torch.Tensor, scalars13: torch.Tensor) -> torch.Tensor:
+        terms = fd.mul(self.spec, polys13, scalars13[:, None, :])
+        return _sum_rows(self.spec, terms)
+
+    def open_batch(self, polys: torch.Tensor, point: int, eta: int) -> torch.Tensor:
+        """eta-fold the polys and divide by (X - point): the KZG witness."""
+        from ..commitment import kzg
+
+        spec, p = self.spec, self.p
+        m = polys.shape[1]
+        eta_powers = self.vec([pow(eta, i, p) for i in range(polys.shape[0])])
+        pt_powers = fd.powers(spec, self.vec([point])[0], m)
+        pt_inv = pow(point, -1, p)
+        # [pt^-1, pt^-2, ..., pt^-m]
+        pt_inv_powers = fd.mul(spec, fd.powers(spec, self.vec([pt_inv])[0], m), self.vec([pt_inv])[0])
+        folded = _sum_rows(spec, fd.mul(spec, polys, eta_powers[:, None, :]))
+        return kzg.divide_by_linear(spec, folded, pt_powers, pt_inv_powers)
+
+    def openings(self, aw_polys, xi: int, saw_polys, wxi: int, eta: int):
+        """The two openings of the key's scheme (KZG witnesses or IPA proofs)."""
+        return (self.scheme.open_batch(self, aw_polys, xi, eta, b"aw"),
+                self.scheme.open_batch(self, saw_polys, wxi, eta, b"saw"))
 
 
 # ---------------------------------------------------------------------------

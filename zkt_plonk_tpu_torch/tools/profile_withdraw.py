@@ -3,7 +3,8 @@
 Usage (from the repository root, on a machine with a card):
 
     python -m zkt_plonk_tpu_torch.tools.profile_withdraw [--curve bn254]
-        [--height 48] [--notes 3] [--table 1024] [--out profile_withdraw.json]
+        [--height 48] [--notes 3] [--table 1024] [--sharded]
+        [--out profile_withdraw.json]
 
 The file imports the package by its absolute name, so it also profiles
 another tree of the port: ``PYTHONPATH=<tree> python <this file>``.
@@ -25,8 +26,11 @@ coordinates), sets up the SRS, compiles, proves once to warm up, then
      time over the wall time of that proof gives the device's busy share
      (profiling slows the host, so that proof's wall time is longer than the
      unprofiled one).
-The card's name and power limit are printed beside the numbers, and the
-whole record is written as JSON to ``--out``.
+With ``--sharded`` the proofs go through ``parallel.ShardedProver`` on a
+world-size-1 NCCL mesh instead (the same rounds on (body, tail) shards,
+the same bytes), with the same phases timed.  The card's name and power
+limit are printed beside the numbers, and the whole record is written as
+JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -80,6 +84,8 @@ def main() -> int:
     ap.add_argument("--height", type=int, default=48)
     ap.add_argument("--notes", type=int, default=3)
     ap.add_argument("--table", type=int, default=1024)
+    ap.add_argument("--sharded", action="store_true",
+                    help="prove through parallel.ShardedProver at D = 1 (NCCL, world size 1)")
     ap.add_argument("--out", default="profile_withdraw.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -115,6 +121,28 @@ def main() -> int:
     compile_s = time.perf_counter() - t0
     rng = random.Random(42)
     inst.prove(compiled, circuit, rng=rng)  # warm-up: builds the prover's tables
+    prover = inst.prover(compiled)
+    committer = prover.committer
+
+    def prove():
+        return inst.prove(compiled, circuit, rng=rng)
+
+    if args.sharded:
+        import socket
+
+        from zkt_plonk_tpu_torch import parallel
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: loopback only
+        parallel.init_distributed("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+        prover = committer = parallel.ShardedProver(prover, parallel.make_mesh(device=dev))
+
+        def prove():
+            return inst.prove(compiled, circuit, rng=rng, prover=prover)
+
+        prove()  # warm-up of the sharded path
 
     # every NTT: its launches by kernel, inside a profiler range
     transform = ntt_mr.transform
@@ -135,19 +163,18 @@ def main() -> int:
     # 1. phase timing
     phases = defaultdict(float)
     stack = []
-    prover = compiled._prover
     originals = {}
     for name in ("commit_batch", "z_round", "quotient_round", "evaluate", "linearize", "open_batch"):
         originals[name] = getattr(prover, name)
         setattr(prover, name, _timed(phases, stack, name, originals[name]))
-    commit_many = prover.committer.commit_many
-    prover.committer.commit_many = _timed(phases, stack, "msm_commits", commit_many)
+    commit_many = committer.commit_many
+    committer.commit_many = _timed(phases, stack, "msm_commits", commit_many)
     synth = circuit.synthesize
     circuit.synthesize = _timed(phases, stack, "synthesize", synth)
     _sync()
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    proof = inst.prove(compiled, circuit, rng=rng)
+    proof = prove()
     _sync()
     prove_s = time.perf_counter() - t0
     launches = dict(_cuda.launches)
@@ -155,7 +182,7 @@ def main() -> int:
                      "launches": {k: v for k, v in ntt_launches.items() if v}}
     for name, fn in originals.items():
         setattr(prover, name, fn)
-    prover.committer.commit_many = commit_many
+    committer.commit_many = commit_many
     circuit.synthesize = synth
     phases = dict(phases)
     phases["host_rest"] = prove_s - sum(phases.values())
@@ -166,7 +193,7 @@ def main() -> int:
     _sync()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        inst.prove(compiled, circuit, rng=rng)
+        prove()
         _sync()
         prof_wall = time.perf_counter() - t0
     ntt_mr.transform = transform
@@ -199,7 +226,7 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi,
         "config": {"curve": args.curve, "height": args.height, "notes": args.notes,
-                   "table": args.table, "n": bound},
+                   "table": args.table, "n": bound, "sharded": args.sharded},
         "compile_s": compile_s,
         "prove_s": prove_s,
         "phases_s": phases,
@@ -219,7 +246,7 @@ def main() -> int:
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)
     print(f"card: {smi}")
-    print(f"n={bound} compile_s={compile_s:.3f} prove_s={prove_s:.3f}")
+    print(f"n={bound} sharded={args.sharded} compile_s={compile_s:.3f} prove_s={prove_s:.3f}")
     print(f"kernel launches in one proof: {launches}")
     print(f"NTTs in one proof: {ntt_per_proof}")
     for k, v in sorted(phases.items(), key=lambda kv: -kv[1]):
@@ -230,6 +257,10 @@ def main() -> int:
         print(f"  {label}: {v['seconds'] * 1e3:.2f} ms device in {v['calls']} calls")
     for k, v in top:
         print(f"  {v[0] * 1e3:10.2f} ms {v[1]:7d} calls  {k[:90]}")
+    if args.sharded:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 
