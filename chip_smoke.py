@@ -31,7 +31,10 @@ Phases, one line each:
                 MSM's bucket accumulation) at n = 2^18 + 4 on BN254 and
                 BLS12-381 with B = 3 scalar vectors, including 0, 1,
                 r - 1, negative-zero digits and runs of one digit, and its
-                time at the prover's batches B = 1, 2, 3, 6;
+                time at the prover's batches B = 1, 2, 3, 6; on BN254 its
+                affine instance too, on the Z = 1 copy (ec.normalize) of
+                the same points scaled to Z != 1, with both bounds (the
+                work its digits need, and every step a complete add);
   4. golden   — the TinyCircuit proof on the card: 802 bytes, fixed sha256;
   5. withdraw — the withdraw circuit at HEIGHT=48, NOTES=3, TABLE=1024
                 (n = 2^18) on BN254: SRS setup, compile, cold and warm
@@ -39,7 +42,9 @@ Phases, one line each:
                 on a world-size-1 NCCL mesh (cold, then warm; the same
                 bytes; it verifies), a tampered public input that must
                 raise, the launch count of every kernel instance over this
-                main path, and the launches inside each of its NTTs (D of
+                main path (K4a's affine instance on BN254, never its
+                projective one: the commits run on the key's Z = 1 copy),
+                and the launches inside each of its NTTs (D of
                 K3, nothing else); then BatchProver with 3 rows sharing the
                 card (a size-1 NCCL group and a CUDA stream each, rows in
                 threads) on one witness with 3 proof seeds, each proof
@@ -66,7 +71,9 @@ Phases, one line each:
                 and one ShardedProver proof at D = 1, byte-equal;
   9. matrix   — IPA commits on the card against the plain versions on the
                 CPU (m = 2^12 on BN254, 2^10 on BLS12-381) and against the
-                host MSM at m = 2^8; then the five configurations of
+                host MSM at m = 2^8 (``ipa.commit(device=True)``, a bare MSM
+                over the generators: K4a's projective instances, counted as
+                the path ``ipa_commit``); then the five configurations of
                 tests/test_e2e.py:101-161 (IPA on BN254, BLS12-381 and
                 BLS12-377; KZG on both BLS12 curves): each proves on the
                 card and on the CPU with equal fields, verifies, and fails
@@ -117,6 +124,10 @@ PRODUCT_OPS = 2 * 8 * 8
 REDUCE_OPS = 8 + 2 * 8 * 8
 MODMUL_OPS = PRODUCT_OPS + REDUCE_OPS
 EC_ADD_OPS = 12 * PRODUCT_OPS + 9 * REDUCE_OPS
+# K4a's bounds (tools/time_k4a.py): the projective form's counts every step
+# as a complete add; the affine form's counts its work from the digits, 11
+# products and 8 reductions per mixed add, 2 modular products per first
+# hit, 3 per padding step into a bucket already hit
 # the same at 12 words (L = 24, the BLS12 base fields)
 MODMUL_OPS_24 = 2 * 12 * 12 + 12 + 2 * 12 * 12
 EC_ADD_OPS_24 = 12 * (2 * 12 * 12) + 9 * (12 + 2 * 12 * 12)
@@ -591,16 +602,6 @@ def parity_ec_add(records, dev, curve="bn254", record=True):
     )
 
 
-def _acc_bound(n, BW, G, K, L=16):
-    """K4a's bound: every one of the BW * n_pad steps is one complete add;
-    bytes: the points and digits read once and the bucket tensor written
-    once."""
-    n_pad = -(-n // G) * G
-    elem = 4 * L
-    nbytes = 3 * elem * n + 2 * BW * n_pad + 3 * elem * G * BW * K
-    return bound_ms(nbytes, BW * n_pad * (EC_ADD_OPS if L == 16 else EC_ADD_OPS_24))
-
-
 def _host_row(ck, pts_host, digits, g, bw, G, K):
     """Buckets of row (g, bw) by host affine arithmetic."""
     from zkt_plonk_tpu_torch.curves import curve_host as ch
@@ -623,6 +624,7 @@ def parity_ec_bucket_accumulate(records, dev, curve="bn254", log_n=18):
     from zkt_plonk_tpu_torch import _cuda
     from zkt_plonk_tpu_torch.fields.limbs import ints_to_array
     from zkt_plonk_tpu_torch.ops import ec, msm
+    from zkt_plonk_tpu_torch.tools.time_k4a import affine_bound, projective_bound
 
     ck = srs_1024(dev, curve)
     ctx = ck.ctx
@@ -683,7 +685,7 @@ def parity_ec_bucket_accumulate(records, dev, curve="bn254", log_n=18):
         if ec.to_affine_host(spec, got[g, bw]) != _host_row(ck, pts_host, digits_h, g, bw, G, K):
             raise AssertionError(f"{key} row ({g}, {bw}) wrong against host adds")
     k_ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c), reps=3, warmup=1)
-    b_ms, b_by = _acc_bound(n, B * W, G, K, L)
+    b_ms, b_by = projective_bound(n, B * W, G, K, L)
     say("parity", kernel=key, curve=curve, shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", ms=k_ms,
         plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
     records[key] = dict(
@@ -692,6 +694,9 @@ def parity_ec_bucket_accumulate(records, dev, curve="bn254", log_n=18):
         replaces="zkt_plonk_tpu/ops/ec_pallas.py:99", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
+    if L == 16:
+        parity_bucket_accumulate_affine(records, dev, ck, pts, digits, got, G, c, n, W,
+                                        shape=f"n=2^{log_n}+4,B={B},c={c},G={G}")
     del got, plain, digits
     # the prover's other commit batches
     for B in (1, 2, 6):
@@ -699,11 +704,74 @@ def parity_ec_bucket_accumulate(records, dev, curve="bn254", log_n=18):
         digits = msm.digit_rows(torch.from_numpy(scalars(B)).to(dev), c, fr_bits, G)
         ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c),
                        reps=3, warmup=1)
-        b_ms, b_by = _acc_bound(n, digits.shape[0], G, K, L)
+        b_ms, b_by = projective_bound(n, digits.shape[0], G, K, L)
         say("time", kernel=key, curve=curve, shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", ms=ms,
             bound_ms=b_ms, bound_by=b_by)
+        if L == 16:
+            ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c, affine=True),
+                           reps=3, warmup=1)
+            a_ms, a_by = affine_bound(digits, n, G, K)
+            say("time", kernel=_cuda.instance("ec_bucket_accumulate", affine=True), curve=curve,
+                shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", ms=ms, bound_ms=a_ms, bound_by=a_by,
+                bound_all_steps_ms=b_ms)
         del digits
     torch.cuda.empty_cache()
+
+
+def parity_bucket_accumulate_affine(records, dev, ck, pts, digits, projective, G, c, n, W, shape):
+    """K4a's affine instance on the phase's B = 3 digits, over the Z = 1
+    copy (``ec.normalize``, as a key's ``msm_points`` builds it) of the
+    Z = 1 points scaled by random factors to Z != 1: the copy equal to the
+    points, the buckets equal to the plain version's and to the projective
+    instance's on the same digits, four rows against host adds."""
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.fields import device as fd
+    from zkt_plonk_tpu_torch.ops import ec, msm
+    from zkt_plonk_tpu_torch.tools.time_k4a import affine_bound, projective_bound, step_counts
+
+    spec = ck.ctx.fq_spec
+    key = _cuda.instance("ec_bucket_accumulate", affine=True)
+    K = (1 << (c - 1)) + 1
+    lam = torch.from_numpy(random_limbs(spec, n, np.random.default_rng(61))).to(dev)
+    lam[:, 0] |= 1  # never zero
+    copy = ec.normalize(spec, fd.mul(spec, pts, lam[:, None]))
+    if not torch.equal(copy, pts):
+        raise AssertionError("ec.normalize of the scaled points is not the points")
+    before = _cuda.launches[key]
+    got = msm.bucket_accumulate(spec, ck.b3, copy, digits, G, c, affine=True)
+    if _cuda.launches[key] != before + 1:
+        raise AssertionError(f"bucket_accumulate(affine=True) did not launch {key}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = msm.bucket_accumulate_plain(spec, ck.b3, copy, digits, G, c)
+    end.record()
+    end.synchronize()
+    p_ms = start.elapsed_time(end)
+    err = max_abs_err(got, plain)
+    if err != 0 or not torch.equal(got, projective):
+        raise AssertionError(f"{key} disagrees (max_abs_err {err} against the plain version; "
+                             f"equal to the projective instance: {torch.equal(got, projective)})")
+    pts_host = ec.to_affine_host(spec, ck.powers)
+    pts_host = [pts_host[i % 1024] for i in range(n)]
+    digits_h = digits.cpu()
+    for g, bw in ((0, 0), (3 % G, W + 5), (9 % G, 2 * W + 1), (G - 1, 3 * W - 1)):
+        if ec.to_affine_host(spec, got[g, bw]) != _host_row(ck, pts_host, digits_h, g, bw, G, K):
+            raise AssertionError(f"{key} row ({g}, {bw}) wrong against host adds")
+    k_ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, copy, digits, G, c, affine=True),
+                     reps=3, warmup=1)
+    b_ms, b_by = affine_bound(digits, n, G, K)
+    all_ms, _ = projective_bound(n, digits.shape[0], G, K)
+    first, repeat, padding = step_counts(digits, n, G, K)
+    say("parity", kernel=key, curve=ck.ctx.name, shape=shape, ms=k_ms,
+        plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, bound_all_steps_ms=all_ms,
+        first_hits=first, repeat_hits=repeat, padding_hits=padding, max_abs_err=err)
+    records[key] = dict(
+        name=key, route="cuda",
+        source="zkt_plonk_tpu_torch/csrc/ec_bucket_accumulate.cu",
+        replaces="zkt_plonk_tpu/ops/ec_pallas.py:99", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -919,6 +987,12 @@ def sharded_proofs(phase, dev, inst, compiled, circuit, pub_inputs, want, single
         nvidia_smi=f"'{nvidia_smi_line()}'")
     say(phase, launches_per_warm_proof=json.dumps({"single_device": single_launches,
                                                    "sharded_d1": sharded_launches}))
+    if inst.ctx.fq_spec.n_limbs == 16:
+        # the commits run on the key's Z = 1 copy: K4a's affine instance only
+        for path, got in (("single_device", single_launches), ("sharded_d1", sharded_launches)):
+            if got.get("ec_bucket_accumulate/affine", 0) == 0 or got.get("ec_bucket_accumulate", 0):
+                raise AssertionError(f"{phase} {path}: K4a launches {got}: want the affine "
+                                     "instance, never the projective one")
 
 
 def device_busy_share(fn):
@@ -1500,22 +1574,24 @@ def ptxas_report(name: str):
 
 
 def occupancy_report() -> None:
-    """Resident blocks per SM and registers of K4 and K4a at L = 16 and 24,
-    from the card; K4a's blocks must equal ``msm.ACC_RESIDENT_BLOCKS``, from
-    which ``msm.group_count`` sizes its bucket rows."""
+    """Resident blocks per SM and registers of K4 and K4a at L = 16 and 24
+    and of K4a's affine instance, from the card; each K4a instance's blocks
+    must equal ``ops/msm.py``'s table (``ACC_RESIDENT_BLOCKS``, from which
+    ``msm.group_count`` sizes its bucket rows, and
+    ``ACC_PROJECTIVE_L16_BLOCKS``)."""
     from zkt_plonk_tpu_torch import _cuda
     from zkt_plonk_tpu_torch.ops import msm
 
-    for name in _cuda.OCCUPANCY_KERNELS:
-        for L in (16, 24):
-            blocks, regs = _cuda.occupancy(name, L)
-            key = _cuda.instance(name, L)
-            say("occupancy", kernel=key, threads=msm.ACC_THREADS, blocks_per_sm=blocks,
-                registers=regs, resident_threads=blocks * msm.ACC_THREADS * msm.ACC_SMS)
-            if name == "ec_bucket_accumulate" and blocks != msm.ACC_RESIDENT_BLOCKS[L]:
-                raise AssertionError(
-                    f"{key}: {blocks} resident blocks per SM on the card, "
-                    f"msm.ACC_RESIDENT_BLOCKS says {msm.ACC_RESIDENT_BLOCKS[L]}")
+    table = {"ec_bucket_accumulate": msm.ACC_PROJECTIVE_L16_BLOCKS,
+             "ec_bucket_accumulate/affine": msm.ACC_RESIDENT_BLOCKS[16],
+             "ec_bucket_accumulate/L24": msm.ACC_RESIDENT_BLOCKS[24]}
+    for key in _cuda.OCCUPANCY_INSTANCES:
+        blocks, regs = _cuda.occupancy(key)
+        say("occupancy", kernel=key, threads=msm.ACC_THREADS, blocks_per_sm=blocks,
+            registers=regs, resident_threads=blocks * msm.ACC_THREADS * msm.ACC_SMS)
+        if key in table and blocks != table[key]:
+            raise AssertionError(
+                f"{key}: {blocks} resident blocks per SM on the card, ops/msm.py says {table[key]}")
 
 
 PHASES = ("parity", "golden", "withdraw", "poseidon", "cli", "bls12_withdraw", "matrix",
@@ -1584,8 +1660,12 @@ def main() -> int:
         paths.update(withdraw(dev, curve="bls12_381")[0])
         say("total", after="bls12_withdraw", wall_s=round(time.perf_counter() - T_START, 1))
     if "matrix" in phases:
+        # ipa.commit(device=True), a bare MSM over the generators: the path
+        # of K4a's projective L = 16 instance, since every key's commits
+        # take the affine one
         _cuda.reset_launches()
         ipa_commits(dev)
+        paths["ipa_commit"] = dict(_cuda.launches)
         paths["matrix"] = matrix(dev)
     if "sharded_d2" in phases:
         paths["sharded_d2"] = sharded_d2(dev)

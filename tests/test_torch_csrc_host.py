@@ -17,7 +17,13 @@ shared-memory loads and stores as plain ones) and a stub
   3b = 12) and BLS12-377's Fq (L = 24, 3b = 3), in Montgomery form, against
   ``ops.ec_cuda.add_plain`` bit for bit after conversion out of Montgomery
   form: the identity, doublings, P + (-P), random projective pairs of
-  curve points, and coordinates at 0, 1 and p - 1.
+  curve points, and coordinates at 0, 1 and p - 1;
+* the three step forms of K4a's affine instance against ``add_plain`` bit
+  for bit in the same way: ``rcb_add_mixed`` (Q with Z = 1: random pairs,
+  P + P, P + (-P), the bucket at the identity, coordinates at 0, 1 and
+  p - 1), ``rcb_first_hit`` (the identity plus Q with Z = 1) and
+  ``rcb_add_identity`` (P plus the identity, and plus its negation
+  (0 : -1 : 0)).
 
 Without ``g++`` the module's fixture skips.
 """
@@ -137,6 +143,29 @@ static void rcb_n(int staged, const uint32_t* h, const uint32_t* P, const uint32
   }
 }
 
+template <int L>
+static void forms_n(int form, const uint32_t* h, const uint32_t* P, const uint32_t* Q, int b3,
+                    uint32_t* out, long n) {
+  constexpr int NW = L / 2;
+  const FieldConsts<L> fc = consts_from_host<L>(h);
+  for (long i = 0; i < n; ++i) {
+    const uint32_t* p = P + i * 3 * NW;
+    const uint32_t* q = Q + i * 3 * NW;
+    uint32_t* o = out + i * 3 * NW;
+    if (form == 0)
+      ecw::rcb_add_mixed<L>(o, o + NW, o + 2 * NW, p, p + NW, p + 2 * NW, q, q + NW, b3, fc);
+    if (form == 1) ecw::rcb_first_hit<L>(o, o + NW, o + 2 * NW, q, q + NW, fc);
+    if (form == 2) ecw::rcb_add_identity<L>(o, o + NW, o + 2 * NW, p, p + NW, p + 2 * NW, fc);
+  }
+}
+
+// form 0: P + Q for Q with Z = 1; 1: the identity + Q (P unread); 2: P + the identity
+extern "C" void host_rcb_form(int L, int form, const uint32_t* h, const uint32_t* P,
+                              const uint32_t* Q, int b3, uint32_t* out, long n) {
+  if (L == 16) forms_n<16>(form, h, P, Q, b3, out, n);
+  if (L == 24) forms_n<24>(form, h, P, Q, b3, out, n);
+}
+
 extern "C" void host_mont(int L, int mode, const uint32_t* h, const uint32_t* a, const uint32_t* b,
                           const uint32_t* c, const uint32_t* d, uint32_t* out, long n) {
   if (L == 16) mont_n<16>(mode, h, a, b, c, d, out, n);
@@ -174,6 +203,7 @@ def host_lib(tmp_path_factory):
     P, I, LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     lib.host_mont.argtypes = [I, I, P, P, P, P, P, P, LONG]
     lib.host_rcb.argtypes = [I, I, P, P, P, I, P, LONG]
+    lib.host_rcb_form.argtypes = [I, I, P, P, P, I, P, LONG]
     return lib
 
 
@@ -289,3 +319,69 @@ def test_rcb_add_matches_add_plain_bit_for_bit(host_lib, curve, staged):
 
     want = array_to_ints(ec_cuda.add_plain(spec, b3.limbs, limbs(0), limbs(1)).reshape(3 * n, L).numpy())
     assert got == want
+
+
+def _host_form(host_lib, spec, P, Q, b3, form):
+    """(P, Q) int triples -> the shim's outputs as canonical int triples
+    (inputs in Montgomery form, outputs converted back)."""
+    L = spec.n_limbs
+    nw = L // 2
+    p = spec.modulus
+    R = 1 << (32 * nw)
+    n = len(P)
+    mont = lambda pts: _words([c * R % p for pt in pts for c in pt], nw).reshape(n, 3 * nw)
+    Pw, Qw = mont(P), mont(Q)
+    out = np.zeros_like(Pw)
+    host_lib.host_rcb_form(L, form, _cuda.ec_field_consts(spec), _ptr(Pw), _ptr(Qw), b3,
+                           _ptr(out), n)
+    rinv = pow(R, -1, p)
+    got = [v * rinv % p for v in _ints(out.reshape(3 * n, nw))]
+    return [tuple(got[3 * i:3 * i + 3]) for i in range(n)]
+
+
+def _plain(spec, b3, P, Q):
+    L = spec.n_limbs
+    n = len(P)
+    limbs = lambda pts: torch.from_numpy(
+        ints_to_array([c for pt in pts for c in pt], L).astype(np.int32)).reshape(n, 3, L)
+    out = array_to_ints(ec_cuda.add_plain(spec, b3.limbs, limbs(P), limbs(Q)).reshape(3 * n, L).numpy())
+    return [tuple(out[3 * i:3 * i + 3]) for i in range(n)]
+
+
+@pytest.mark.parametrize("form", ["mixed", "first_hit", "padding"])
+@pytest.mark.parametrize("curve", CURVES)
+def test_affine_step_forms_match_add_plain_bit_for_bit(host_lib, curve, form):
+    """K4a's affine instance's three step forms give add_plain's canonical
+    words: the mixed add on Q with Z = 1, the first hit (the bucket at the
+    identity) and the padding step (the identity, of either sign, added)."""
+    ctx = make_context(curve)
+    spec = ctx.fq_spec
+    p = spec.modulus
+    b3 = ec.b3_const(spec, int(ctx.curve.b), device="cpu")
+    rng = random.Random(b3.value * spec.n_limbs + 1)
+    pairs = _pairs(curve, rng)
+
+    def z1(pt):  # (X/Z : Y/Z : 1), or None for Z = 0
+        x, y, z = pt
+        if z == 0:
+            return None
+        zi = pow(z, -1, p)
+        return (x * zi % p, y * zi % p, 1)
+
+    edges = [0, 1, p - 1, rng.randrange(p)]
+    qs = [(x, y, 1) for x in edges for y in edges]
+    P = [a for a, b in pairs if z1(b) is not None] + [pairs[i % len(pairs)][0] for i in range(len(qs))]
+    Q = [z1(b) for a, b in pairs if z1(b) is not None] + qs
+    ident = (0, 1, 0)
+    if form == "mixed":
+        P[:len(qs)] = [ident] * len(qs)  # the bucket at the identity
+        want = _plain(spec, b3, P, Q)
+    elif form == "first_hit":
+        P = [ident] * len(Q)
+        want = _plain(spec, b3, P, Q)
+    else:
+        Q = [ident] * len(P)
+        want = _plain(spec, b3, P, Q)
+        assert _plain(spec, b3, P, [(0, p - 1, 0)] * len(P)) == want
+    code = {"mixed": 0, "first_hit": 1, "padding": 2}[form]
+    assert _host_form(host_lib, spec, P, Q, b3.value, code) == want

@@ -12,7 +12,8 @@ nowhere else, through ``count``, which holds a lock so that the counts
 stay exact when several threads launch at once (``parallel.BatchProver``).  An instance is a kernel at one limb count and reduction
 mode: ``ec_add_complete`` is K4 at L = 16, ``ec_add_complete/L24`` K4 at
 L = 24 (the BLS12 base fields), ``ntt_col_pass/strict`` K3 in its strict
-mode (``reduction_consts``).
+mode (``reduction_consts``), ``ec_bucket_accumulate/affine`` K4a at
+L = 16 on points with Z = 1.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ NVCC_FLAGS = [
 # the instances beyond each kernel's L = 16 lazy one
 EXTRA_INSTANCES = (
     "fp_binop/L24", "fp_pow_chain/strict", "ntt_col_pass/strict", "ec_add_complete/L24",
-    "ec_bucket_accumulate/L24",
+    "ec_bucket_accumulate/L24", "ec_bucket_accumulate/affine",
 )
 INSTANCES = KERNELS + EXTRA_INSTANCES
 
@@ -65,11 +66,12 @@ def reset_launches() -> None:
             launches[name] = 0
 
 
-def instance(kernel: str, L: int = 16, strict: bool = False) -> str:
+def instance(kernel: str, L: int = 16, strict: bool = False, affine: bool = False) -> str:
     """The launch counter of ``kernel`` at L limbs in the given mode."""
-    name = kernel + ("/L24" if L == 24 else "") + ("/strict" if strict else "")
+    name = (kernel + ("/L24" if L == 24 else "") + ("/strict" if strict else "")
+            + ("/affine" if affine else ""))
     if name not in launches:
-        raise ValueError(f"{kernel} has no instance for L = {L}, strict = {strict}")
+        raise ValueError(f"{kernel} has no instance for L = {L}, strict = {strict}, affine = {affine}")
     return name
 
 
@@ -159,42 +161,48 @@ def _declare(name: str, cdll: ctypes.CDLL) -> ctypes.CDLL:
     UP = ctypes.POINTER(ctypes.c_uint)
     U16P = ctypes.POINTER(ctypes.c_ushort)
     U8P = ctypes.POINTER(ctypes.c_ubyte)
+    acc = [I, P, LL, P, P, P, I, I, I, LL, I, UP, P]
     sigs = {
-        "fp_binop": ("zk_fp_binop", [I, I, P, P, P, LL, I, LLP, LLP, LLP, UP, P]),
-        "fp_pow_chain": ("zk_fp_pow_chain", [I, P, P, LL, I, I, I, I, U16P, U8P, I, UP, P]),
-        "ntt_col_pass": (
-            "zk_ntt_fused_pass", [I, P, P, I, LL, LL, I, I, I, I, P, P, P, I, UP, P]
-        ),
-        "ec_add_complete": (
-            "zk_ec_add_complete", [I, P, P, P, LL, I, LLP, LLP, LLP, I, UP, P]
-        ),
-        "ec_bucket_accumulate": (
-            "zk_ec_bucket_accumulate", [I, P, LL, P, P, P, I, I, I, LL, I, UP, P]
-        ),
+        "fp_binop": {"zk_fp_binop": [I, I, P, P, P, LL, I, LLP, LLP, LLP, UP, P]},
+        "fp_pow_chain": {"zk_fp_pow_chain": [I, P, P, LL, I, I, I, I, U16P, U8P, I, UP, P]},
+        "ntt_col_pass": {"zk_ntt_fused_pass": [I, P, P, I, LL, LL, I, I, I, I, P, P, P, I, UP, P]},
+        "ec_add_complete": {"zk_ec_add_complete": [I, P, P, P, LL, I, LLP, LLP, LLP, I, UP, P]},
+        "ec_bucket_accumulate": {"zk_ec_bucket_accumulate": acc,
+                                 "zk_ec_bucket_accumulate_affine": acc},
     }
-    fn_name, argtypes = sigs[name]
-    fn = getattr(cdll, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    if name in OCCUPANCY_KERNELS:
-        occ = getattr(cdll, f"zk_{name}_occupancy")
-        occ.argtypes = [I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-        occ.restype = ctypes.c_int
+    occ = [I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    fns = dict(sigs[name])
+    for inst in OCCUPANCY_INSTANCES:
+        if inst.split("/")[0] == name:
+            fns[_occupancy_fn(inst)] = occ
+    for fn_name, argtypes in fns.items():
+        fn = getattr(cdll, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return cdll
 
 
-# the kernels whose libraries report their occupancy per limb count
-OCCUPANCY_KERNELS = ("ec_add_complete", "ec_bucket_accumulate")
+# the instances whose libraries report their occupancy
+OCCUPANCY_INSTANCES = (
+    "ec_add_complete", "ec_add_complete/L24", "ec_bucket_accumulate", "ec_bucket_accumulate/L24",
+    "ec_bucket_accumulate/affine",
+)
 
 
-def occupancy(name: str, L: int):
-    """(resident blocks per SM, registers per thread) of kernel ``name``'s
-    main function at L limbs, from the card
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the kernel's block
-    size, cudaFuncGetAttributes)."""
+def _occupancy_fn(inst: str) -> str:
+    """The library export of ``inst``'s occupancy: zk_<kernel>[_affine]_occupancy(L, ...)."""
+    kernel = inst.split("/")[0]
+    return f"zk_{kernel}{'_affine' if inst.endswith('/affine') else ''}_occupancy"
+
+
+def occupancy(inst: str):
+    """(resident blocks per SM, registers per thread) of instance ``inst``'s
+    main function, from the card (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    at the kernel's block size, cudaFuncGetAttributes)."""
     blocks, regs = ctypes.c_int(), ctypes.c_int()
-    err = getattr(lib(name), f"zk_{name}_occupancy")(L, ctypes.byref(blocks), ctypes.byref(regs))
-    check(err, f"{name} occupancy")
+    L = 24 if "/L24" in inst else 16
+    fn = getattr(lib(inst.split("/")[0]), _occupancy_fn(inst))
+    check(fn(L, ctypes.byref(blocks), ctypes.byref(regs)), f"{inst} occupancy")
     return blocks.value, regs.value
 
 

@@ -21,6 +21,7 @@ round-trips exactly).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -110,6 +111,13 @@ class CommitterKeyIPA:
     @property
     def device(self) -> torch.device:
         return self.gens_dev.device
+
+    @cached_property
+    def msm_points(self) -> msm.CommitPoints:
+        """``gens_dev`` as commits take them (``msm.commit_points``), built
+        on first use and shared by every committer of this key.  The
+        generators already have Z = 1, so the copy equals them bit for bit."""
+        return msm.commit_points(self.ctx.fq_spec, self.gens_dev)
 
     def supported_degree(self) -> int:
         return len(self.gens) - 1

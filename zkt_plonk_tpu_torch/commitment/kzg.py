@@ -7,7 +7,7 @@ commitment.rs:24-46``), as in ``zkt_plonk_tpu/commitment/kzg.py``:
   MSM up to 4096 points, above that ``ops/msm.fixed_base_msm`` on the device
   (the host computes only the scalar powers);
 * ``Committer.commit_many``: the port's Pippenger MSM on the device the
-  polynomials live on (no host route);
+  polynomials live on (no host route), over the key's ``msm_points``;
 * ``divide_by_linear``: the opening witness (P(X) - P(xi)) / (X - xi) as a
   multiply, a log-depth suffix sum and a multiply;
 * ``check``: the host pairing equation.
@@ -16,6 +16,7 @@ commitment.rs:24-46``), as in ``zkt_plonk_tpu/commitment/kzg.py``:
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,6 +45,13 @@ class CommitterKey:
     @property
     def device(self) -> torch.device:
         return self.powers.device
+
+    @cached_property
+    def msm_points(self) -> msm.CommitPoints:
+        """The powers as commits take them (``msm.commit_points``: a Z = 1
+        copy at L = 16), built on first use and shared by every committer
+        of this key; derived state, never serialized."""
+        return msm.commit_points(self.ctx.fq_spec, self.powers)
 
 
 @dataclass(eq=False)
@@ -125,7 +133,8 @@ class Committer:
     def commit_many(self, polys) -> list:
         """polys: (B, m, L) tensor or list of (m, L).  Returns a list of host
         affine points.  All polys share one length (one window size)."""
-        return msm.commit_rows(self.ck.ctx, self.ck.b3, self.ck.powers, polys)
+        points, affine = self.ck.msm_points
+        return msm.commit_rows(self.ck.ctx, self.ck.b3, points, polys, affine=affine)
 
 
 def divide_by_linear(

@@ -54,9 +54,9 @@ class IPAScheme:
 
     class _Committer:
         """Commits on the key's device: one batched MSM over its generator
-        table (the JAX package chooses by ``jax.default_backend()``; here a
-        CUDA key launches the kernels and a CPU key runs the plain
-        versions)."""
+        table as ``msm_points`` (the JAX package chooses by
+        ``jax.default_backend()``; here a CUDA key launches the kernels and
+        a CPU key runs the plain versions)."""
 
         def __init__(self, ck: ipa.CommitterKeyIPA):
             self.ck = ck
@@ -64,7 +64,8 @@ class IPAScheme:
         def commit_many(self, polys) -> List[Point]:
             if polys[0].shape[0] > len(self.ck.gens):
                 raise ValueError("polynomial degree exceeds committer key")
-            return msm.commit_rows(self.ck.ctx, self.ck.b3, self.ck.gens_dev, polys)
+            points, affine = self.ck.msm_points
+            return msm.commit_rows(self.ck.ctx, self.ck.b3, points, polys, affine=affine)
 
     def committer(self, ck):
         return IPAScheme._Committer(ck)

@@ -5,7 +5,12 @@
 // The formula needs 12 products: the six of layer 1 each take one
 // Montgomery reduction; the six of layer 3 pair up into X3, Y3, Z3 =
 // a*b + c*d, so each pair takes two wide products and ONE reduction (12
-// products, 9 reductions).
+// products, 9 reductions).  K4a's affine instance adds points with Z2 = 1
+// (rcb_add_mixed, Algorithm 8: 11 products, 8 reductions) and takes two
+// cases of the formula apart: a bucket at the identity (rcb_first_hit, 2
+// products) and the identity added to a bucket (rcb_add_identity, 3).
+// Each gives the field values of rcb_add on the same inputs, so the same
+// canonical words.
 //
 // Lazy reduction: the functions below need p < R/5 (BN254's Fq: p < 0.19 R
 // at L = 16; the BLS12 base fields at L = 24: 0.102 R and 0.007 R; the
@@ -86,6 +91,31 @@ __device__ __forceinline__ void sop_canon(uint32_t r[L / 2], const uint32_t a[L 
   csub<NW>(r, r, fc.p);
 }
 
+// Layers 2 and 3 of rcb_add from layer 1's values, each below 2p: t0 =
+// X1X2, t1 = Y1Y2, t2 = Z1Z2, t3 = X1Y2 + X2Y1, t4 = Y1Z2 + Y2Z1, t5 =
+// X1Z2 + X2Z1 (all clobbered).  Outputs canonical.
+template <int L>
+__device__ __forceinline__ void rcb_finish(uint32_t X3[L / 2], uint32_t Y3[L / 2],
+                                           uint32_t Z3[L / 2], uint32_t t0[L / 2],
+                                           uint32_t t1[L / 2], uint32_t t2[L / 2],
+                                           uint32_t t3[L / 2], uint32_t t4[L / 2],
+                                           uint32_t t5[L / 2], int b3, const FieldConsts<L>& fc) {
+  constexpr int NW = L / 2;
+  uint32_t u[NW], v[NW];
+  // layer 2: the curve constant and the small multiples
+  mul_small2p<L>(t2, t2, b3, fc);  // 3b Z1Z2
+  mul_small2p<L>(t5, t5, b3, fc);  // 3b (X1Z2 + X2Z1)
+  add_mod<NW>(u, t0, t0, fc.p2);
+  add_mod<NW>(t0, u, t0, fc.p2);   // 3 X1X2
+  add_mod<NW>(u, t1, t2, fc.p2);   // zs = Y1Y2 + 3b Z1Z2
+  sub_mod<NW>(v, t1, t2, fc.p2);   // td = Y1Y2 - 3b Z1Z2
+  neg2p<L>(t1, t5, fc);            // -3b (X1Z2 + X2Z1)
+  // layer 3: three sums of two products, one reduction each
+  sop_canon<L>(X3, t3, v, t4, t1, fc);  // t3 td - t4 b3t5
+  sop_canon<L>(Y3, t5, t0, v, u, fc);   // b3t5 m3t0 + td zs
+  sop_canon<L>(Z3, u, t4, t0, t3, fc);  // zs t4 + m3t0 t3
+}
+
 // (X3 : Y3 : Z3) = (X1 : Y1 : Z1) + (X2 : Y2 : Z2), every coordinate
 // canonical.  Montgomery-consistent: with inputs x*R the outputs are x*R;
 // with inputs x (no R) they are x * R^-3.  b3 = 3b as a small integer.
@@ -116,18 +146,61 @@ __device__ __forceinline__ void rcb_add(uint32_t X3[L / 2], uint32_t Y3[L / 2], 
   sub_mod<NW>(t4, t4, t2, fc.p2);  // Y1Z2 + Y2Z1
   sub_mod<NW>(t5, t5, t0, fc.p2);
   sub_mod<NW>(t5, t5, t2, fc.p2);  // X1Z2 + X2Z1
-  // layer 2: the curve constant and the small multiples
-  mul_small2p<L>(t2, t2, b3, fc);  // 3b Z1Z2
-  mul_small2p<L>(t5, t5, b3, fc);  // 3b (X1Z2 + X2Z1)
-  add_mod<NW>(u, t0, t0, fc.p2);
-  add_mod<NW>(t0, u, t0, fc.p2);   // 3 X1X2
-  add_mod<NW>(u, t1, t2, fc.p2);   // zs = Y1Y2 + 3b Z1Z2
-  sub_mod<NW>(v, t1, t2, fc.p2);   // td = Y1Y2 - 3b Z1Z2
-  neg2p<L>(t1, t5, fc);            // -3b (X1Z2 + X2Z1)
-  // layer 3: three sums of two products, one reduction each
-  sop_canon<L>(X3, t3, v, t4, t1, fc);  // t3 td - t4 b3t5
-  sop_canon<L>(Y3, t5, t0, v, u, fc);   // b3t5 m3t0 + td zs
-  sop_canon<L>(Z3, u, t4, t0, t3, fc);  // zs t4 + m3t0 t3
+  rcb_finish<L>(X3, Y3, Z3, t0, t1, t2, t3, t4, t5, b3, fc);
+}
+
+// rcb_add with Z2 = 1 (RCB 2015, Algorithm 8): t2 = Z1Z2 is Z1, and the
+// cross sums X1Z2 + X2Z1 and Y1Z2 + Y2Z1 are X1 + X2Z1 and Y1 + Y2Z1, so
+// layer 1 takes five products and layers 2-3 are rcb_add's (11 products,
+// 8 reductions).  The same field values as rcb_add(P, (X2 : Y2 : 1)),
+// hence the same canonical words; Z2 is never read.
+template <int L>
+__device__ __forceinline__ void rcb_add_mixed(uint32_t X3[L / 2], uint32_t Y3[L / 2],
+                                              uint32_t Z3[L / 2], const uint32_t X1[L / 2],
+                                              const uint32_t Y1[L / 2], const uint32_t Z1[L / 2],
+                                              const uint32_t X2[L / 2], const uint32_t Y2[L / 2],
+                                              int b3, const FieldConsts<L>& fc) {
+  constexpr int NW = L / 2;
+  uint32_t t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], t5[NW], u[NW], v[NW];
+  mont<L>(t4, Y2, Z1, fc);
+  add_mod<NW>(t4, t4, Y1, fc.p2);  // Y1 + Y2Z1
+  mont<L>(t5, X2, Z1, fc);
+  add_mod<NW>(t5, t5, X1, fc.p2);  // X1 + X2Z1
+  mont<L>(t0, X1, X2, fc);
+  mont<L>(t1, Y1, Y2, fc);
+  add_nr<NW>(u, X1, Y1);
+  add_nr<NW>(v, X2, Y2);
+  mont<L>(t3, u, v, fc);  // (X1+Y1)(X2+Y2)
+  sub_mod<NW>(t3, t3, t0, fc.p2);
+  sub_mod<NW>(t3, t3, t1, fc.p2);  // X1Y2 + X2Y1
+  copy_w<NW>(t2, Z1);
+  rcb_finish<L>(X3, Y3, Z3, t0, t1, t2, t3, t4, t5, b3, fc);
+}
+
+// (0 : 1 : 0) + (X2 : Y2 : 1) under rcb_add: t0 = t2 = t5 = 0, t1 = Y2,
+// t3 = X2, t4 = 1, so (X2Y2 : Y2^2 : Y2) — two products, and the bucket
+// need not be read.  Canonical inputs and outputs.
+template <int L>
+__device__ __forceinline__ void rcb_first_hit(uint32_t X3[L / 2], uint32_t Y3[L / 2],
+                                              uint32_t Z3[L / 2], const uint32_t X2[L / 2],
+                                              const uint32_t Y2[L / 2], const FieldConsts<L>& fc) {
+  mont_mul<L>(X3, X2, Y2, fc);
+  mont_mul<L>(Y3, Y2, Y2, fc);
+  copy_w<L / 2>(Z3, Y2);
+}
+
+// (X1 : Y1 : Z1) + (0 : +-1 : 0) under rcb_add: t0 = t2 = t5 = 0,
+// t1 = +-Y1, t3 = +-X1, t4 = +-Z1, so (X1Y1 : Y1^2 : Y1Z1) for either
+// sign — three products; the identity plus itself stays (0 : 1 : 0).
+template <int L>
+__device__ __forceinline__ void rcb_add_identity(uint32_t X3[L / 2], uint32_t Y3[L / 2],
+                                                 uint32_t Z3[L / 2], const uint32_t X1[L / 2],
+                                                 const uint32_t Y1[L / 2],
+                                                 const uint32_t Z1[L / 2],
+                                                 const FieldConsts<L>& fc) {
+  mont_mul<L>(X3, X1, Y1, fc);
+  mont_mul<L>(Y3, Y1, Y1, fc);
+  mont_mul<L>(Z3, Y1, Z1, fc);
 }
 
 // Field values staged in shared memory for one thread: quad q (words 4q ..

@@ -37,6 +37,9 @@
 // * __launch_bounds__(128) with no minimum of blocks: ptxas gives the
 //   8-word instance 142 registers and no spills (3 blocks per SM); asking
 //   for 4 blocks makes it spill;
+// * the affine instance at 8 words (bucket_accumulate_affine_kernel) is the
+//   form every commitment key's MSM runs (a Z = 1 copy of the key's points,
+//   ops/msm.py commit_points): see its own note below;
 // * the 12-word instance (the BLS12 base fields) runs the formula shaped
 //   for the register file, ec.cuh's rcb_add_staged: the step's bucket and
 //   point go to shared memory (7 values of 48 B per thread with the
@@ -69,6 +72,29 @@ __global__ void to_montgomery_kernel(const int32_t* __restrict__ pts, long long 
     }
     mont_mul<L>(y, x, fc.r2, fc);  // x*R
     ecw::store_words<NW>(pm + i * NW, y);
+  }
+}
+
+// A bucket slot of 3*L words out of Montgomery form, in place: its packed
+// Montgomery words (the first 3*NW) become the canonical 16-bit limbs of
+// the three coordinates
+template <int L>
+__device__ __forceinline__ void bucket_out(uint32_t* b, const FieldConsts<L>& fc) {
+  constexpr int NW = L / 2;
+  uint32_t w[3][NW];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) ecw::load_words<NW>(w[c], b + c * NW);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    uint32_t T[L], r[NW];
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      T[j] = w[c][j];
+      T[NW + j] = 0u;
+    }
+    redc<L>(r, T, fc);  // x*R/R: below p + 1, and equal to p only for x = 0
+    csub<NW>(r, r, fc.p);
+    store_elem<L>(reinterpret_cast<int32_t*>(b) + c * L, r);
   }
 }
 
@@ -151,25 +177,7 @@ __global__ void __launch_bounds__(ACC_THREADS)
     }
   }
 
-  // out of Montgomery form, into the slot's canonical 16-bit limbs
-  for (int k = 0; k < K; ++k) {
-    uint32_t* b = buckets + k * SLOT;
-    uint32_t w[3][NW];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) ecw::load_words<NW>(w[c], b + c * NW);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      uint32_t T[L], r[NW];
-#pragma unroll
-      for (int j = 0; j < NW; ++j) {
-        T[j] = w[c][j];
-        T[NW + j] = 0u;
-      }
-      redc<L>(r, T, fc);  // x*R/R: below p + 1, and equal to p only for x = 0
-      csub<NW>(r, r, fc.p);
-      store_elem<L>(reinterpret_cast<int32_t*>(b) + c * L, r);
-    }
-  }
+  for (int k = 0; k < K; ++k) bucket_out<L>(buckets + k * SLOT, fc);
 }
 
 template <int L>
@@ -189,12 +197,239 @@ int launch_accumulate(const int32_t* points, long long n, uint32_t* pm, const in
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The affine instance (L = 16): points with Z = 1
+//
+// What the projective form spends that this one does not:
+// * every step a complete add (12 products, 9 reductions).  Here the
+//   points are (x, y, 1), a Z = 1 copy of the key's points made once per
+//   key, so a step into a bucket that already holds a point is a mixed add
+//   (ecw::rcb_add_mixed, 11 products and 8 reductions; the pre-kernel packs
+//   only x and y, 64 B per point, and Z2 is never loaded); a step into a
+//   bucket that still holds the identity is a first hit, (x y : y^2 : y)
+//   (ecw::rcb_first_hit, 2 products, no bucket read); and a padding step
+//   (j*G + g >= n, the identity with digit 0) adds the identity,
+//   (X1 Y1 : Y1^2 : Y1 Z1) (ecw::rcb_add_identity, 3 products), or nothing
+//   to a bucket still at the identity.  All three give rcb_add's canonical
+//   words, so the buckets are bit for bit the projective form's;
+// * the init pass writing K identity slots per row: a mask of K bits per
+//   thread in shared memory says which buckets were hit, and the buckets
+//   never hit are written as the canonical identity at the end.
+// Registers: ptxas gives this kernel 168 and no spills at 3 blocks of 128
+// per SM (ZK_ACC_AFFINE_MIN_BLOCKS).  Held to 128 for 4 blocks it spills
+// 76 B and took 8-10% longer at every batch; and at the prover's G's a
+// batch of one fills only about 2 blocks per SM (PERF.md).
+//
+// A warp's 32 rows hit their buckets' first time at different steps, and a
+// warp runs a branch's two sides one after the other, so first hits taken
+// where they fall would cost a mixed add's time almost every step.  The
+// first hits of a row commute with its other steps (no earlier step touched
+// that bucket), so they run in a pass of their own ahead of the rest:
+// pass 1 walks the row and writes each bucket's first hit; pass 2 walks it
+// again and adds every later hit.  In each pass a thread runs ahead over
+// the steps the pass skips (a digit and a mask bit each) to its next step
+// of work, so the warp's threads meet at the products.  Then the padding
+// steps, the row's last, in order.  Each pass loads the next step's digit
+// before the current step's products.
+// ---------------------------------------------------------------------------
+
+// Build switches for measuring the design (tools/time_k4a.py --variant):
+// the minimum of resident blocks asked of ptxas, and ZK_ACC_FIRST_HITS=0,
+// which drops pass 1 and the masks' use (an init pass, every step a mixed
+// add)
+#ifndef ZK_ACC_AFFINE_MIN_BLOCKS
+#define ZK_ACC_AFFINE_MIN_BLOCKS 3
+#endif
+#ifndef ZK_ACC_FIRST_HITS
+#define ZK_ACC_FIRST_HITS 1
+#endif
+
+// the two K-bit masks of a block's threads, in bytes
+inline size_t affine_mask_bytes(int K) {
+  return 2 * (size_t)((K + 31) / 32) * ACC_THREADS * sizeof(uint32_t);
+}
+constexpr size_t ACC_AFFINE_MASK_MAX = 48 * 1024;  // static shared memory without an opt-in
+
+// one thread's K-bit mask: word w at base[w * ACC_THREADS], so a warp's
+// 32 threads touch 32 banks whatever their buckets
+struct BucketMask {
+  uint32_t* base;
+
+  __device__ __forceinline__ bool test(int k) const {
+    return (base[(k >> 5) * ACC_THREADS] >> (k & 31)) & 1u;
+  }
+  // sets bit k; returns whether it was set
+  __device__ __forceinline__ bool test_and_set(int k) const {
+    uint32_t* w = base + (k >> 5) * ACC_THREADS;
+    const uint32_t bit = 1u << (k & 31);
+    const uint32_t old = *w;
+    *w = old | bit;
+    return old & bit;
+  }
+};
+
+// pa[2i + c] = Montgomery form of coordinate c (x, y) of point i < n
 template <int L>
-int occupancy(int* blocks, int* registers) {
+__global__ void to_montgomery_xy_kernel(const int32_t* __restrict__ pts, long long n,
+                                        uint32_t* __restrict__ pa, FieldConsts<L> fc) {
+  constexpr int NW = L / 2;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < 2 * n;
+       i += (long long)gridDim.x * blockDim.x) {
+    uint32_t x[NW];
+    load_elem<L>(x, pts + (i / 2 * 3 + i % 2) * L);
+    mont_mul<L>(x, x, fc.r2, fc);  // x*R
+    ecw::store_words<NW>(pa + i * NW, x);
+  }
+}
+
+template <int L>
+__global__ void __launch_bounds__(ACC_THREADS, ZK_ACC_AFFINE_MIN_BLOCKS)
+    bucket_accumulate_affine_kernel(const uint32_t* __restrict__ pa,
+                                    const int16_t* __restrict__ digits, int32_t* __restrict__ out,
+                                    long long n, int G, int BW, int K, long long S, int b3,
+                                    FieldConsts<L> fc) {
+  constexpr int NW = L / 2;
+  constexpr int SLOT = 3 * L;
+  extern __shared__ uint32_t masks[];
+  const long long row = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (row >= (long long)G * BW) return;
+  const int g = (int)(row % G);
+  const int bw = (int)(row / G);
+  uint32_t* buckets = reinterpret_cast<uint32_t*>(out) + ((long long)g * BW + bw) * K * SLOT;
+  const int16_t* drow = digits + (long long)bw * S * G + g;
+  const uint32_t* prow = pa + (long long)g * 2 * NW;
+  const long long pstep = (long long)G * 2 * NW;
+  // steps 0 .. steps-1 have a point (j*G + g < n); the rest are padding
+  const long long steps = n > g ? (n - g + G - 1) / G : 0;
+  const int words = (K + 31) / 32;
+  const BucketMask hit{masks + threadIdx.x};                        // written in pass 1
+  const BucketMask seen{masks + words * ACC_THREADS + threadIdx.x};  // written in pass 2
+  for (int w = 0; w < words; ++w) {
+    hit.base[w * ACC_THREADS] = 0u;
+    seen.base[w * ACC_THREADS] = 0u;
+  }
+  auto mag = [](int code) { return code < 0 ? ~code : code; };
+  auto digit = [&](long long j) { return j < steps ? (int)drow[j * G] : 0; };
+  auto load_point = [&](uint32_t x[NW], uint32_t y[NW], long long j, int code) {
+    ecw::load_words<NW>(x, prow + j * pstep);
+    ecw::load_words<NW>(y, prow + j * pstep + NW);
+    if (code < 0) ecw::neg_canon<L>(y, y, fc);  // -P = (x : -y : 1)
+  };
+
+  if constexpr (ZK_ACC_FIRST_HITS) {
+    // pass 1: each bucket's first hit
+    long long j = 0;
+    int code = digit(0);
+    for (;;) {
+      int k = mag(code);
+      while (j < steps && hit.test_and_set(k)) {  // a repeat: pass 2's
+        code = digit(++j);
+        k = mag(code);
+      }
+      if (j >= steps) break;
+      const int next = digit(j + 1);
+      uint32_t x[NW], y[NW], X3[NW], Y3[NW], Z3[NW];
+      load_point(x, y, j, code);
+      ecw::rcb_first_hit<L>(X3, Y3, Z3, x, y, fc);
+      uint32_t* b = buckets + k * SLOT;
+      ecw::store_words<NW>(b, X3);
+      ecw::store_words<NW>(b + NW, Y3);
+      ecw::store_words<NW>(b + 2 * NW, Z3);
+      code = next;
+      ++j;
+    }
+  } else {
+    // every bucket starts at the identity (0 : 1 : 0) in Montgomery form;
+    // every step is a mixed add
+    uint32_t zero[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) zero[w] = 0u;
+    for (int k = 0; k < K; ++k) {
+      ecw::store_words<NW>(buckets + k * SLOT, zero);
+      ecw::store_words<NW>(buckets + k * SLOT + NW, fc.rm);
+      ecw::store_words<NW>(buckets + k * SLOT + 2 * NW, zero);
+      hit.test_and_set(k);
+      seen.test_and_set(k);
+    }
+  }
+  {
+    // pass 2: every later hit, in step order
+    long long j = 0;
+    int code = digit(0);
+    for (;;) {
+      int k = mag(code);
+      while (j < steps && !seen.test_and_set(k)) {  // a first hit: pass 1's
+        code = digit(++j);
+        k = mag(code);
+      }
+      if (j >= steps) break;
+      const int next = digit(j + 1);
+      uint32_t* b = buckets + k * SLOT;
+      uint32_t X1[NW], Y1[NW], Z1[NW], x[NW], y[NW], X3[NW], Y3[NW], Z3[NW];
+      ecw::load_words<NW>(X1, b);
+      ecw::load_words<NW>(Y1, b + NW);
+      ecw::load_words<NW>(Z1, b + 2 * NW);
+      load_point(x, y, j, code);
+      ecw::rcb_add_mixed<L>(X3, Y3, Z3, X1, Y1, Z1, x, y, b3, fc);
+      ecw::store_words<NW>(b, X3);
+      ecw::store_words<NW>(b + NW, Y3);
+      ecw::store_words<NW>(b + 2 * NW, Z3);
+      code = next;
+      ++j;
+    }
+  }
+  // the padding steps: the identity added to a bucket already hit
+  for (long long j = steps; j < S; ++j) {
+    const int k = mag(drow[j * G]);
+    if (!hit.test(k)) continue;
+    uint32_t* b = buckets + k * SLOT;
+    uint32_t X1[NW], Y1[NW], Z1[NW], X3[NW], Y3[NW], Z3[NW];
+    ecw::load_words<NW>(X1, b);
+    ecw::load_words<NW>(Y1, b + NW);
+    ecw::load_words<NW>(Z1, b + 2 * NW);
+    ecw::rcb_add_identity<L>(X3, Y3, Z3, X1, Y1, Z1, fc);
+    ecw::store_words<NW>(b, X3);
+    ecw::store_words<NW>(b + NW, Y3);
+    ecw::store_words<NW>(b + 2 * NW, Z3);
+  }
+  // out: the buckets hit from Montgomery form, the others the identity
+  for (int k = 0; k < K; ++k) {
+    uint32_t* b = buckets + k * SLOT;
+    if (hit.test(k)) {
+      bucket_out<L>(b, fc);
+    } else {
+      int4* v = reinterpret_cast<int4*>(b);
+#pragma unroll
+      for (int q = 0; q < SLOT / 4; ++q) v[q] = make_int4(q == L / 4 ? 1 : 0, 0, 0, 0);
+    }
+  }
+}
+
+template <int L>
+int launch_accumulate_affine(const int32_t* points, long long n, uint32_t* pa,
+                             const int16_t* digits, int32_t* out, int G, int BW, int K,
+                             long long S, int b3, const uint32_t* consts, cudaStream_t s) {
+  FieldConsts<L> fc = consts_from_host<L>(consts);
+  if (n > 0) {
+    long long want = (2 * n + 255) / 256;
+    int blocks = (int)(want < (1LL << 20) ? want : (1LL << 20));
+    to_montgomery_xy_kernel<L><<<blocks, 256, 0, s>>>(points, n, pa, fc);
+    int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  const long long rows = (long long)G * BW;
+  bucket_accumulate_affine_kernel<L>
+      <<<(unsigned)((rows + ACC_THREADS - 1) / ACC_THREADS), ACC_THREADS, affine_mask_bytes(K),
+         s>>>(pa, digits, out, n, G, BW, K, S, b3, fc);
+  return (int)cudaGetLastError();
+}
+
+template <class Kernel>
+int occupancy(Kernel kernel, size_t smem, int* blocks, int* registers) {
   cudaFuncAttributes attr;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, bucket_accumulate_kernel<L>, ACC_THREADS, 0);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, bucket_accumulate_kernel<L>);
+  cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, ACC_THREADS, smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
   if (e == cudaSuccess) *registers = attr.numRegs;
   return (int)e;
 }
@@ -204,8 +439,17 @@ int occupancy(int* blocks, int* registers) {
 // resident blocks of ACC_THREADS threads per SM, and registers per thread,
 // of the accumulation kernel at L limbs
 extern "C" int zk_ec_bucket_accumulate_occupancy(int L, int* blocks, int* registers) {
-  if (L == 16) return zk::occupancy<16>(blocks, registers);
-  if (L == 24) return zk::occupancy<24>(blocks, registers);
+  if (L == 16) return zk::occupancy(zk::bucket_accumulate_kernel<16>, 0, blocks, registers);
+  if (L == 24) return zk::occupancy(zk::bucket_accumulate_kernel<24>, 0, blocks, registers);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the same for the affine instance, with the masks of c = 8 (K = 129), the
+// window of every commit above 2^12 points
+extern "C" int zk_ec_bucket_accumulate_affine_occupancy(int L, int* blocks, int* registers) {
+  if (L == 16)
+    return zk::occupancy(zk::bucket_accumulate_affine_kernel<16>, zk::affine_mask_bytes(129),
+                         blocks, registers);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -223,5 +467,22 @@ extern "C" int zk_ec_bucket_accumulate(int L, const void* points, long long n, v
   const uint32_t* hc = reinterpret_cast<const uint32_t*>(consts);
   if (L == 16) return zk::launch_accumulate<16>(pts, n, pmw, dg, o, G, BW, K, S, b3, hc, s);
   if (L == 24) return zk::launch_accumulate<24>(pts, n, pmw, dg, o, G, BW, K, S, b3, hc, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// points (n, 3, L) with Z = 1 (Z is not read); pa scratch of 2*n*L/2 words
+extern "C" int zk_ec_bucket_accumulate_affine(int L, const void* points, long long n, void* pa,
+                                              const void* digits, void* out, int G, int BW, int K,
+                                              long long S, int b3, const unsigned* consts,
+                                              void* stream) {
+  if (n < 0 || G < 1 || BW < 1 || K < 1 || S < 1 || n > S * G || b3 < 0 || b3 > 255 ||
+      zk::affine_mask_bytes(K) > zk::ACC_AFFINE_MASK_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const uint32_t* hc = reinterpret_cast<const uint32_t*>(consts);
+  if (L == 16)
+    return zk::launch_accumulate_affine<16>(
+        static_cast<const int32_t*>(points), n, static_cast<uint32_t*>(pa),
+        static_cast<const int16_t*>(digits), static_cast<int32_t*>(out), G, BW, K, S, b3, hc, s);
   return (int)cudaErrorInvalidValue;
 }

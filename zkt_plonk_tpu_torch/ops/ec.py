@@ -71,6 +71,19 @@ def to_affine_host(spec: FieldSpec, arr):
     return out
 
 
+def normalize(spec: FieldSpec, points: torch.Tensor) -> torch.Tensor:
+    """(n, 3, L) projective points -> the same points as (X/Z : Y/Z : 1):
+    one batch inversion of the Z column (``fd.batch_inverse``: K1 scans and
+    one K2 on the card) and two K1 products.  A point with Z = 1 comes back
+    bit for bit.  Raises on a point with Z = 0 (the identity has no such
+    form); that check makes the host wait for the card once."""
+    z = points[:, 2]
+    if bool(fd.is_zero(spec, z).any()):
+        raise ValueError("a point with Z = 0 (the identity) has no Z = 1 form")
+    xy = fd.mul(spec, points[:, :2], fd.batch_inverse(spec, z)[:, None])
+    return torch.cat([xy, fd.one(spec, (points.shape[0], 1), device=points.device)], dim=1)
+
+
 def add(spec: FieldSpec, b3: B3, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Complete projective addition (RCB 2015, Algorithm 7, a = 0).
 

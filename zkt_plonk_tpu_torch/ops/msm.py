@@ -10,6 +10,9 @@ the window fold on the host — with the bucket layout chosen for the card:
 * the accumulation is kernel K4a (``bucket_accumulate``), one launch per
   batch: a thread owns one bucket row (g, b*W + w) and walks the S steps
   itself, so the per-step gathers and scatters stay inside the kernel;
+* a commitment key's commits run over a Z = 1 copy of its points at L = 16
+  (``commit_points``), K4a's affine instance: mixed adds, first hits and
+  padding steps as two or three products;
 * the bucket tensor is laid out group-major (G, B*W, K) so every merge
   step adds two contiguous halves; the merges and the suffix scan are K4;
 * digits are computed in bulk before the accumulation, as int16 codes.
@@ -19,6 +22,8 @@ this module's own.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -83,13 +88,20 @@ def msm_window_size(n: int, c: int = 0) -> int:
 
 
 # Resident blocks per SM of K4a's ACC_THREADS-thread blocks on an H100's
-# 132 SMs, per instance (limb count), from ptxas's register count of each
-# (PERF.md).  chip_smoke.py holds the table against the card's occupancy
-# call (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a table rather than
-# the call, so that the CPU path picks the same G as the card.
+# 132 SMs, for the instance a key's commits run at each limb count (the
+# affine one at L = 16, the staged one at L = 24), from ptxas's register
+# count of each (PERF.md).  The projective L = 16 instance, which bare MSM
+# callers run, holds ACC_PROJECTIVE_L16_BLOCKS; the rule reads the affine
+# one's count for both.  chip_smoke.py holds both against the card's
+# occupancy call (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a table
+# rather than the call, so that the CPU path picks the same G as the card.
 ACC_THREADS = 128
 ACC_SMS = 132
 ACC_RESIDENT_BLOCKS = {16: 3, 24: 4}
+ACC_PROJECTIVE_L16_BLOCKS = 3
+# the affine instance keeps two K-bit masks per thread in shared memory,
+# within 48 KB a block: windows up to c = 11 (K = 1025)
+ACC_AFFINE_MAX_C = 11
 # The G rule aims at this share of an instance's resident bucket rows, and
 # at no more than ACC_ROWS_MAX rows.  From the sweeps of
 # tools/sweep_msm_groups.py (PERF.md): the 8-word instance (3 blocks, 50,688
@@ -167,7 +179,8 @@ def bucket_accumulate_plain(
 
 
 def bucket_accumulate(
-    spec: FieldSpec, b3: ec.B3, points: torch.Tensor, digits: torch.Tensor, G: int, c: int
+    spec: FieldSpec, b3: ec.B3, points: torch.Tensor, digits: torch.Tensor, G: int, c: int,
+    affine: bool = False,
 ) -> torch.Tensor:
     """Grouped serial bucket accumulation -> (G, BW, K, 3, L) canonical
     limbs, K = 2^(c-1) + 1.
@@ -181,6 +194,11 @@ def bucket_accumulate(
     them; only the CPU path checks, since a check on the card would make
     the host wait for it on every batch.  Kernel K4a on the card, the plain
     version on the CPU.
+
+    ``affine=True`` takes points with Z = 1 (``commit_points``) and runs
+    K4a's affine instance (L = 16, c <= ACC_AFFINE_MAX_C): the same
+    buckets, bit for bit.  Its kernel never reads Z; the CPU path raises on
+    a point whose Z is not 1, for the same reason as the digit codes.
     """
     L = spec.n_limbs
     if points.dtype != torch.int32 or points.dim() != 3 or tuple(points.shape[1:]) != (3, L):
@@ -192,10 +210,16 @@ def bucket_accumulate(
     K = (1 << (c - 1)) + 1
     if G < 1 or n_pad % G or n_pad < n or n_pad == 0:
         raise ValueError(f"digits cover {n_pad} points: need a multiple of G={G} and >= {n}")
+    key = _cuda.instance("ec_bucket_accumulate", L, affine=affine)
+    if affine and c > ACC_AFFINE_MAX_C:
+        raise ValueError(f"{key} takes windows up to c = {ACC_AFFINE_MAX_C}, got {c}")
     if points.device.type == "cpu" and digits.device.type == "cpu":
         lo, hi = torch.aminmax(digits)
         if hi.item() >= K or ~lo.item() >= K:
             raise ValueError(f"digit codes out of range for K={K} buckets")
+        z = points[:, 2]
+        if affine and not bool((z[:, 0] == 1).all() and (z[:, 1:] == 0).all()):
+            raise ValueError(f"{key} needs points with Z = 1 (commit_points)")
         return bucket_accumulate_plain(spec, b3, points, digits, G, c)
     if points.device != digits.device or points.device.type != "cuda":
         raise ValueError(f"points on {points.device}, digits on {digits.device}")
@@ -204,14 +228,18 @@ def bucket_accumulate(
     points = points.contiguous()
     digits = digits.contiguous()
     out = torch.empty((G, BW, K, 3, L), dtype=torch.int32, device=points.device)
-    pm = torch.empty((n_pad, 3, L // 2), dtype=torch.int32, device=points.device)
-    fn = _cuda.lib("ec_bucket_accumulate").zk_ec_bucket_accumulate
+    # the points in packed Montgomery words: (x, y) of the n points, or all
+    # three coordinates of the n_pad (identity padding)
+    pm_shape = (n, 2, L // 2) if affine else (n_pad, 3, L // 2)
+    pm = torch.empty(pm_shape, dtype=torch.int32, device=points.device)
+    lib = _cuda.lib("ec_bucket_accumulate")
+    fn = lib.zk_ec_bucket_accumulate_affine if affine else lib.zk_ec_bucket_accumulate
     err = fn(
         L, points.data_ptr(), n, pm.data_ptr(), digits.data_ptr(), out.data_ptr(),
         G, BW, K, n_pad // G, b3.value, _cuda.ec_field_consts(spec), _cuda.stream_ptr(points),
     )
-    _cuda.check(err, "ec_bucket_accumulate")
-    _cuda.count(_cuda.instance("ec_bucket_accumulate", L))
+    _cuda.check(err, key)
+    _cuda.count(key)
     return out
 
 
@@ -225,10 +253,11 @@ def digit_rows(scalars: torch.Tensor, c: int, fr_bits: int, G: int) -> torch.Ten
     return torch.nn.functional.pad(digits, (0, -(-n // G) * G - n))
 
 
-def _accumulate(fq_spec, b3, points, scalars, fr_bits, c, G):
+def _accumulate(fq_spec, b3, points, scalars, fr_bits, c, G, affine=False):
     """Grouped serial bucket accumulation of B scalar vectors (B, n, Lr)
     over points (n, 3, L) -> (G, B*W, K, 3, L)."""
-    return bucket_accumulate(fq_spec, b3, points, digit_rows(scalars, c, fr_bits, G), G, c)
+    digits = digit_rows(scalars, c, fr_bits, G)
+    return bucket_accumulate(fq_spec, b3, points, digits, G, c, affine=affine)
 
 
 def _tree_reduce_points(fq_spec, b3, pts: torch.Tensor) -> torch.Tensor:
@@ -275,11 +304,13 @@ def msm_totals(
     fr_bits: int,
     c: int = 0,
     groups: int = 0,
+    affine: bool = False,
 ) -> torch.Tensor:
     """Device part of the MSM up to the per-window totals.
 
     points (n, 3, L); scalars (n, Lr) or a batch (B, n, Lr).  Returns
     (W, 3, L) or (B, W, 3, L); ``fold_windows_host`` finishes each.
+    ``affine``: the points have Z = 1 (``commit_points``).
     """
     batched = scalars.dim() == 3
     sc = scalars if batched else scalars[None]
@@ -287,7 +318,7 @@ def msm_totals(
     c = msm_window_size(n, c)
     W = num_windows(fr_bits + 1, c)
     G = groups if groups > 0 else group_count(n, c, sc.shape[0], W, fq_spec.n_limbs)
-    buckets = _accumulate(fq_spec, b3, points, sc, fr_bits, c, G)
+    buckets = _accumulate(fq_spec, b3, points, sc, fr_bits, c, G, affine)
     totals = _reduce_buckets(fq_spec, b3, buckets)
     totals = totals.reshape(sc.shape[0], -1, 3, fq_spec.n_limbs)
     return totals if batched else totals[0]
@@ -317,15 +348,36 @@ def msm(fq_spec, Fq, b3, points, scalars, fr_bits: int, c: int = 0):
     return fold_windows_host(fq_spec, Fq, totals, c)
 
 
-def commit_rows(ctx, b3, points: torch.Tensor, polys) -> list:
+class CommitPoints(NamedTuple):
+    """The points a commitment key's MSMs run over, and whether they are
+    the Z = 1 copy that K4a's affine instance takes."""
+
+    points: torch.Tensor
+    affine: bool
+
+
+def commit_points(spec: FieldSpec, points: torch.Tensor) -> CommitPoints:
+    """A key's (N, 3, L) points as its commits take them: at L = 16 a Z = 1
+    copy (``ec.normalize``), for K4a's affine instance; at L = 24 the points
+    as they are.  Each key builds it once (``kzg.CommitterKey.msm_points``,
+    ``ipa.CommitterKeyIPA.msm_points``) and never serializes it.  The copy
+    changes the bucket words, not the points, so the commitments are the
+    same."""
+    if spec.n_limbs == 16:
+        return CommitPoints(ec.normalize(spec, points), True)
+    return CommitPoints(points, False)
+
+
+def commit_rows(ctx, b3, points: torch.Tensor, polys, affine: bool = False) -> list:
     """One commitment per row of ``polys`` ((B, m, L) tensor or a list of
-    (m, L)) over the first m of ``points``, as one batched MSM on their
-    device; host affine points (int pairs) or None."""
+    (m, L)) over the first m of ``points`` (``affine``: with Z = 1), as one
+    batched MSM on their device; host affine points (int pairs) or None."""
     stacked = polys if isinstance(polys, torch.Tensor) else torch.stack(list(polys))
     m = stacked.shape[1]
     c = msm_window_size(m)
     fr_bits = ctx.curve.fr.modulus.bit_length()
-    totals = msm_totals(ctx.fq_spec, b3, points[:m], stacked, fr_bits, c=c).cpu().numpy()
+    totals = msm_totals(ctx.fq_spec, b3, points[:m], stacked, fr_bits, c=c,
+                        affine=affine).cpu().numpy()
     return [fold_windows_host(ctx.fq_spec, ctx.Fq, totals[i], c) for i in range(len(totals))]
 
 

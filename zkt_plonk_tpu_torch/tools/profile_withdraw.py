@@ -13,7 +13,9 @@ It builds the withdraw circuit (default: the reference's HEIGHT=48,
 NOTES=3, TABLE=1024, n = 2^18; on BN254 with the Ethereum transcript, or
 with ``--curve bls12_381`` on BLS12-381 with Merlin and 48-byte
 coordinates), sets up the SRS, compiles, proves once to warm up, then
-  1. proves again with every prover phase timed on the host clock around a
+  1. proves again (the proof's sha256 is reported: the seed is fixed, so
+     two trees that prove the same bytes report the same digest) with
+     every prover phase timed on the host clock around a
      ``torch.cuda.synchronize()`` (synthesis, the iNTT/blinding batches, the
      MSM commit batches, the z and quotient rounds, evaluations,
      linearization, openings; the remainder is host work in ``prove``),
@@ -36,6 +38,7 @@ JSON to ``--out``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import random
@@ -47,9 +50,9 @@ import torch
 
 
 # device kernel names of the MSM's EC kernels (csrc/ec_bucket_accumulate.cu,
-# csrc/ec_add_complete.cu), both instances
+# csrc/ec_add_complete.cu), every instance
 EC_KERNELS = {
-    "K4a": ("bucket_accumulate_kernel",),
+    "K4a": ("bucket_accumulate_kernel", "bucket_accumulate_affine_kernel"),
     "K4": ("ec_add_complete_kernel", "ec_add_staged_kernel"),
 }
 
@@ -97,6 +100,7 @@ def main() -> int:
     from zkt_plonk_tpu_torch.cs import ConstraintSystem
     from zkt_plonk_tpu_torch.ops import ntt_mr
     from zkt_plonk_tpu_torch.plonk import ZKTPlonk
+    from zkt_plonk_tpu_torch.utils import arkserde
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -187,6 +191,8 @@ def main() -> int:
     phases = dict(phases)
     phases["host_rest"] = prove_s - sum(phases.values())
     inst.verify(compiled, proof, pub)
+    proof_sha256 = hashlib.sha256(arkserde.proof_to_bytes(
+        proof, inst.ctx.curve.fq.modulus, inst.ctx.curve.fr.modulus)).hexdigest()
 
     # 2. device time by kernel under the profiler
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -229,6 +235,7 @@ def main() -> int:
                    "table": args.table, "n": bound, "sharded": args.sharded},
         "compile_s": compile_s,
         "prove_s": prove_s,
+        "proof_sha256": proof_sha256,
         "phases_s": phases,
         "launches_per_proof": launches,
         "ntt_per_proof": ntt_per_proof,
@@ -246,7 +253,8 @@ def main() -> int:
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)
     print(f"card: {smi}")
-    print(f"n={bound} sharded={args.sharded} compile_s={compile_s:.3f} prove_s={prove_s:.3f}")
+    print(f"n={bound} sharded={args.sharded} compile_s={compile_s:.3f} prove_s={prove_s:.3f} "
+          f"proof_sha256={proof_sha256}")
     print(f"kernel launches in one proof: {launches}")
     print(f"NTTs in one proof: {ntt_per_proof}")
     for k, v in sorted(phases.items(), key=lambda kv: -kv[1]):

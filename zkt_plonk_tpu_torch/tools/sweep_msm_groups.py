@@ -9,7 +9,8 @@ Usage (from the repository root, on a machine with a card):
 For each batch size B (the prover's commit batches at n = 2^18 are
 B = 1, 2, 3, 6 and 10 polynomials of n + 4 coefficients) and each G, it
 commits B random polynomials to the SRS exactly as
-``kzg.Committer.commit_many`` does (``msm.msm_totals`` with ``groups=G``,
+``kzg.Committer.commit_many`` does (over the key's ``msm_points``: on BN254
+the Z = 1 copy, K4a's affine instance; ``msm.msm_totals`` with ``groups=G``,
 the copy of the window totals to the host, the host window fold), once to
 warm up and then ``--reps`` times with the G's in turns, each after a
 ``torch.cuda.synchronize()``, and records the medians of the commit's
@@ -19,8 +20,8 @@ all of what G changes, without the host fold's noise).  Beside them, the
 device time of the bucket accumulation alone (kernel K4a, CUDA events
 around one launch, median of ``--reps``), and the commit's peak device
 memory above what was allocated before it.  ``--curve`` picks the SRS's
-curve: BN254 runs kernel K4a at L = 16, the BLS12 curves its L = 24
-instance.  For each B it also prints the G that ``msm.group_count``
+curve: BN254 runs kernel K4a's affine instance at L = 16, the BLS12 curves
+its L = 24 instance.  For each B it also prints the G that ``msm.group_count``
 picks (from the resident rows of its K4a instance, ``msm.resident_rows``)
 and how far its commit and accumulation times are from the best G's.
 The card's name and power limit are printed beside the numbers and the
@@ -124,6 +125,7 @@ def main() -> int:
     ctx = make_context(args.curve)
     m = (1 << args.log_n) + 4
     ck, _ = kzg.setup(ctx, max_degree=m - 1, tau=987654321, device=dev)
+    points, affine = ck.msm_points
     fr_bits = ctx.curve.fr.modulus.bit_length()
     c = msm.msm_window_size(m)
     top = int(ctx.fr_spec.modulus_limbs[-1])
@@ -139,7 +141,7 @@ def main() -> int:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            msm.bucket_accumulate(ctx.fq_spec, ck.b3, ck.powers, digits, G, c)
+            msm.bucket_accumulate(ctx.fq_spec, ck.b3, points, digits, G, c, affine=affine)
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
@@ -154,14 +156,15 @@ def main() -> int:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        totals = msm.msm_totals(ctx.fq_spec, ck.b3, ck.powers, scalars, fr_bits, c=c, groups=G)
+        totals = msm.msm_totals(ctx.fq_spec, ck.b3, points, scalars, fr_bits, c=c, groups=G,
+                                affine=affine)
         end.record()
         totals = totals.cpu().numpy()
         out = [msm.fold_windows_host(ctx.fq_spec, ctx.Fq, t, c) for t in totals]
         return out, start.elapsed_time(end), time.perf_counter() - t0
 
     L = ctx.fq_spec.n_limbs
-    print(f"card: {smi}  curve={args.curve} L={L} m={m} c={c} "
+    print(f"card: {smi}  curve={args.curve} L={L} m={m} c={c} affine={affine} "
           f"K4a resident rows={msm.resident_rows(L)}", flush=True)
     rows = []
     for B in batches:
@@ -205,7 +208,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     rule = rule_report(rows, {B: msm.group_count(m, c, B, W, L) for B in batches})
     record = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "curve": args.curve,
-              "m": m, "c": c, "reps": args.reps, "resident_rows": msm.resident_rows(L), "rows": rows,
+              "affine": affine, "m": m, "c": c, "reps": args.reps, "resident_rows": msm.resident_rows(L), "rows": rows,
               "best": {B: r["best_groups"] for B, r in rule.items()}, "rule": rule}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
