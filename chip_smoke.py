@@ -71,9 +71,8 @@ Phases, one line each:
                 and one ShardedProver proof at D = 1, byte-equal;
   9. matrix   — IPA commits on the card against the plain versions on the
                 CPU (m = 2^12 on BN254, 2^10 on BLS12-381) and against the
-                host MSM at m = 2^8 (``ipa.commit(device=True)``, a bare MSM
-                over the generators: K4a's projective instances, counted as
-                the path ``ipa_commit``); then the five configurations of
+                host MSM at m = 2^8 (``ipa.commit(device=True)``, over the
+                key's ``msm_points``); then the five configurations of
                 tests/test_e2e.py:101-161 (IPA on BN254, BLS12-381 and
                 BLS12-377; KZG on both BLS12 curves): each proves on the
                 card and on the CPU with equal fields, verifies, and fails
@@ -106,31 +105,13 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks used for the bounds: HBM 3.35 TB/s (NVIDIA data sheet) and
-# 32-bit integer multiplies at 132 SMs x 64 lanes x 1.98 GHz = 16.7 T/s
-# (the INT32 lanes are half the FP32 lanes behind the 67 TFLOP/s float32 peak).
-HBM_BYTES_PER_S = 3.35e12
-INT32_MUL_PER_S = 132 * 64 * 1.98e9
+# the bounds' peak rates and operation counts (H100 SXM), and K4a's bounds
+from zkt_plonk_tpu_torch.tools.bounds import (
+    EC_ADD_OPS, EC_ADD_OPS_24, MODMUL_OPS, MODMUL_OPS_24, REDUCE_OPS, affine_bound, bound_ms,
+    projective_bound, step_counts,
+)
+
 ELEM_BYTES = 64  # one field element: 16 limbs of int32
-# 32-bit multiplies of 256-bit field arithmetic: a product is 8x8 word
-# products, each a mul.lo and a mul.hi; a Montgomery reduction is 8
-# quotient words (a mul.lo each) and 8x8 word products of them with p.  A
-# modular product is one of each; a complete EC add (RCB Algorithm 7, a = 0,
-# 3b by additions) needs 12 products and 9 reductions, since layer 3 sums
-# its products in pairs before one reduction (csrc/ec.cuh).  The bounds
-# count what the function needs, not the work a kernel spends on its own
-# bookkeeping (Montgomery conversions).
-PRODUCT_OPS = 2 * 8 * 8
-REDUCE_OPS = 8 + 2 * 8 * 8
-MODMUL_OPS = PRODUCT_OPS + REDUCE_OPS
-EC_ADD_OPS = 12 * PRODUCT_OPS + 9 * REDUCE_OPS
-# K4a's bounds (tools/time_k4a.py): the projective form's counts every step
-# as a complete add; the affine form's counts its work from the digits, 11
-# products and 8 reductions per mixed add, 2 modular products per first
-# hit, 3 per padding step into a bucket already hit
-# the same at 12 words (L = 24, the BLS12 base fields)
-MODMUL_OPS_24 = 2 * 12 * 12 + 12 + 2 * 12 * 12
-EC_ADD_OPS_24 = 12 * (2 * 12 * 12) + 9 * (12 + 2 * 12 * 12)
 
 GOLDEN_SHA256 = "504e1dbfaa28af3d1e9da112bbb4329374e06669416c39ec1fc8015df71d3cba"
 # the SmallCircuitDef proofs of tests/test_e2e.py over KZG (Merlin, 48-byte
@@ -191,12 +172,6 @@ def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound_ms(nbytes: float, int_ops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = int_ops / INT32_MUL_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -624,7 +599,6 @@ def parity_ec_bucket_accumulate(records, dev, curve="bn254", log_n=18):
     from zkt_plonk_tpu_torch import _cuda
     from zkt_plonk_tpu_torch.fields.limbs import ints_to_array
     from zkt_plonk_tpu_torch.ops import ec, msm
-    from zkt_plonk_tpu_torch.tools.time_k4a import affine_bound, projective_bound
 
     ck = srs_1024(dev, curve)
     ctx = ck.ctx
@@ -727,7 +701,6 @@ def parity_bucket_accumulate_affine(records, dev, ck, pts, digits, projective, G
     from zkt_plonk_tpu_torch import _cuda
     from zkt_plonk_tpu_torch.fields import device as fd
     from zkt_plonk_tpu_torch.ops import ec, msm
-    from zkt_plonk_tpu_torch.tools.time_k4a import affine_bound, projective_bound, step_counts
 
     spec = ck.ctx.fq_spec
     key = _cuda.instance("ec_bucket_accumulate", affine=True)
@@ -1660,12 +1633,8 @@ def main() -> int:
         paths.update(withdraw(dev, curve="bls12_381")[0])
         say("total", after="bls12_withdraw", wall_s=round(time.perf_counter() - T_START, 1))
     if "matrix" in phases:
-        # ipa.commit(device=True), a bare MSM over the generators: the path
-        # of K4a's projective L = 16 instance, since every key's commits
-        # take the affine one
         _cuda.reset_launches()
         ipa_commits(dev)
-        paths["ipa_commit"] = dict(_cuda.launches)
         paths["matrix"] = matrix(dev)
     if "sharded_d2" in phases:
         paths["sharded_d2"] = sharded_d2(dev)
@@ -1680,10 +1649,14 @@ def main() -> int:
         print("chip_smoke: partial run of phases " + ",".join(sorted(phases)), flush=True)
         return 0
 
-    # every instance lies on a main path, except K1 at L = 24: the BLS12 base
-    # fields' arithmetic on the card is the EC kernels' own
+    # every instance lies on a main path, except K1 at L = 24 (the BLS12 base
+    # fields' arithmetic on the card is the EC kernels' own) and K4a's
+    # projective L = 16 instance (every key commits over its Z = 1 copy)
     off_path = {"fp_binop/L24": "on no main path: the BLS12 base-field arithmetic of the "
-                                "main paths runs inside K4 and K4a"}
+                                "main paths runs inside K4 and K4a",
+                "ec_bucket_accumulate": "on no main path: every key's commits at L = 16 run "
+                                        "the affine instance; this one serves bare msm.msm "
+                                        "calls on projective points"}
     missing = [k for k in _cuda.INSTANCES if launches[k] <= 0 and k not in off_path]
     if missing:
         raise AssertionError(f"kernel instances not launched on the main paths: {missing}")

@@ -10,7 +10,8 @@
 * ``kzg.Committer`` on a key of scaled points commits through the copy,
   built once per key and shared by its committers, and equals the JAX
   package's commitments over the same scaled points; the IPA generators'
-  copy is the generators themselves.
+  copy is the generators themselves, and ``ipa.commit(device=True)``
+  commits over it as the host MSM does.
 """
 
 import random
@@ -90,7 +91,7 @@ def test_msm_totals_over_the_copy_match_the_scaled_points(scaled):
     fr_bits = ctx.curve.fr.modulus.bit_length()
     copy = msm.commit_points(spec, pts)
     assert copy.affine
-    got = msm.msm_totals(spec, ck.b3, copy.points, S, fr_bits, c=4, groups=8, affine=True)
+    got = msm.msm_totals(spec, ck.b3, copy, S, fr_bits, c=4, groups=8)
     want = msm.msm_totals(spec, ck.b3, pts, S, fr_bits, c=4, groups=8)
     assert not torch.equal(got, want)  # other bucket words ...
     assert ec.to_affine_host(spec, got) == ec.to_affine_host(spec, want)  # ... the same points
@@ -114,3 +115,6 @@ def test_ipa_generators_copy_is_the_generators():
     ck, _ = ipa.setup("bn254", max_degree=7, device="cpu")
     points, affine = ck.msm_points
     assert affine and torch.equal(points, ck.gens_dev)
+    rng = random.Random(13)
+    coeffs = [rng.randrange(ck.ctx.curve.fr.modulus) for _ in range(8)]
+    assert ipa.commit(ck, coeffs, device=True) == ipa.commit(ck, coeffs)  # over the copy

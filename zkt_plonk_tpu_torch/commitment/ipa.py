@@ -171,13 +171,14 @@ def _host_msm(points: Sequence[Affine], scalars: Sequence[int]) -> Affine:
 
 
 def _device_commit(ck: CommitterKeyIPA, scalars: Sequence[int]) -> Affine:
-    """The port's Pippenger MSM over the generator table, on the key's
+    """The port's Pippenger MSM over the generator table (the key's
+    ``msm_points``, as ``IPAScheme``'s committer commits), on the key's
     device."""
     ctx = ck.ctx
     r = ctx.curve.fr.modulus
     coeffs = ints_to_array([int(s) % r for s in scalars], ctx.fr_spec.n_limbs)
     coeffs = torch.from_numpy(coeffs.astype(np.int32)).to(ck.device)
-    aff = msm.msm(ctx.fq_spec, ctx.Fq, ck.b3, ck.gens_dev[: len(scalars)], coeffs, r.bit_length())
+    aff = msm.commit_rows(ctx, ck.b3, ck.msm_points, coeffs[None])[0]
     return None if aff is None else (ctx.Fq(aff[0]), ctx.Fq(aff[1]))
 
 

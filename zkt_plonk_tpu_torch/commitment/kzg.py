@@ -133,8 +133,7 @@ class Committer:
     def commit_many(self, polys) -> list:
         """polys: (B, m, L) tensor or list of (m, L).  Returns a list of host
         affine points.  All polys share one length (one window size)."""
-        points, affine = self.ck.msm_points
-        return msm.commit_rows(self.ck.ctx, self.ck.b3, points, polys, affine=affine)
+        return msm.commit_rows(self.ck.ctx, self.ck.b3, self.ck.msm_points, polys)
 
 
 def divide_by_linear(

@@ -64,8 +64,7 @@ class IPAScheme:
         def commit_many(self, polys) -> List[Point]:
             if polys[0].shape[0] > len(self.ck.gens):
                 raise ValueError("polynomial degree exceeds committer key")
-            points, affine = self.ck.msm_points
-            return msm.commit_rows(self.ck.ctx, self.ck.b3, points, polys, affine=affine)
+            return msm.commit_rows(self.ck.ctx, self.ck.b3, self.ck.msm_points, polys)
 
     def committer(self, ck):
         return IPAScheme._Committer(ck)

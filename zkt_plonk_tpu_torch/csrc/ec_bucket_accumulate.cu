@@ -216,9 +216,9 @@ int launch_accumulate(const int32_t* points, long long n, uint32_t* pm, const in
 //   thread in shared memory says which buckets were hit, and the buckets
 //   never hit are written as the canonical identity at the end.
 // Registers: ptxas gives this kernel 168 and no spills at 3 blocks of 128
-// per SM (ZK_ACC_AFFINE_MIN_BLOCKS).  Held to 128 for 4 blocks it spills
-// 76 B and took 8-10% longer at every batch; and at the prover's G's a
-// batch of one fills only about 2 blocks per SM (PERF.md).
+// per SM.  Held to 128 for 4 blocks it spills 76 B and took 8-10% longer
+// at every batch; and at the prover's G's a batch of one fills only about
+// 2 blocks per SM (PERF.md).
 //
 // A warp's 32 rows hit their buckets' first time at different steps, and a
 // warp runs a branch's two sides one after the other, so first hits taken
@@ -230,19 +230,9 @@ int launch_accumulate(const int32_t* points, long long n, uint32_t* pm, const in
 // the steps the pass skips (a digit and a mask bit each) to its next step
 // of work, so the warp's threads meet at the products.  Then the padding
 // steps, the row's last, in order.  Each pass loads the next step's digit
-// before the current step's products.
+// before the current step's products.  Without pass 1 (an init pass, every
+// step a mixed add) the kernel took 6-16% longer (PERF.md).
 // ---------------------------------------------------------------------------
-
-// Build switches for measuring the design (tools/time_k4a.py --variant):
-// the minimum of resident blocks asked of ptxas, and ZK_ACC_FIRST_HITS=0,
-// which drops pass 1 and the masks' use (an init pass, every step a mixed
-// add)
-#ifndef ZK_ACC_AFFINE_MIN_BLOCKS
-#define ZK_ACC_AFFINE_MIN_BLOCKS 3
-#endif
-#ifndef ZK_ACC_FIRST_HITS
-#define ZK_ACC_FIRST_HITS 1
-#endif
 
 // the two K-bit masks of a block's threads, in bytes
 inline size_t affine_mask_bytes(int K) {
@@ -283,7 +273,7 @@ __global__ void to_montgomery_xy_kernel(const int32_t* __restrict__ pts, long lo
 }
 
 template <int L>
-__global__ void __launch_bounds__(ACC_THREADS, ZK_ACC_AFFINE_MIN_BLOCKS)
+__global__ void __launch_bounds__(ACC_THREADS, 3)
     bucket_accumulate_affine_kernel(const uint32_t* __restrict__ pa,
                                     const int16_t* __restrict__ digits, int32_t* __restrict__ out,
                                     long long n, int G, int BW, int K, long long S, int b3,
@@ -316,7 +306,7 @@ __global__ void __launch_bounds__(ACC_THREADS, ZK_ACC_AFFINE_MIN_BLOCKS)
     if (code < 0) ecw::neg_canon<L>(y, y, fc);  // -P = (x : -y : 1)
   };
 
-  if constexpr (ZK_ACC_FIRST_HITS) {
+  {
     // pass 1: each bucket's first hit
     long long j = 0;
     int code = digit(0);
@@ -337,19 +327,6 @@ __global__ void __launch_bounds__(ACC_THREADS, ZK_ACC_AFFINE_MIN_BLOCKS)
       ecw::store_words<NW>(b + 2 * NW, Z3);
       code = next;
       ++j;
-    }
-  } else {
-    // every bucket starts at the identity (0 : 1 : 0) in Montgomery form;
-    // every step is a mixed add
-    uint32_t zero[NW];
-#pragma unroll
-    for (int w = 0; w < NW; ++w) zero[w] = 0u;
-    for (int k = 0; k < K; ++k) {
-      ecw::store_words<NW>(buckets + k * SLOT, zero);
-      ecw::store_words<NW>(buckets + k * SLOT + NW, fc.rm);
-      ecw::store_words<NW>(buckets + k * SLOT + 2 * NW, zero);
-      hit.test_and_set(k);
-      seen.test_and_set(k);
     }
   }
   {

@@ -253,11 +253,27 @@ def digit_rows(scalars: torch.Tensor, c: int, fr_bits: int, G: int) -> torch.Ten
     return torch.nn.functional.pad(digits, (0, -(-n // G) * G - n))
 
 
-def _accumulate(fq_spec, b3, points, scalars, fr_bits, c, G, affine=False):
+class CommitPoints(NamedTuple):
+    """An MSM's (n, 3, L) points, and whether they are a Z = 1 copy
+    (``commit_points``), which K4a's affine instance takes.  The MSM
+    functions below take one wherever they take points; a bare tensor is
+    projective."""
+
+    points: torch.Tensor
+    affine: bool
+
+
+def as_commit_points(points) -> CommitPoints:
+    """A CommitPoints as it is; a bare (n, 3, L) tensor as projective points."""
+    return points if isinstance(points, CommitPoints) else CommitPoints(points, False)
+
+
+def _accumulate(fq_spec, b3, points, scalars, fr_bits, c, G):
     """Grouped serial bucket accumulation of B scalar vectors (B, n, Lr)
-    over points (n, 3, L) -> (G, B*W, K, 3, L)."""
+    over points (n, 3, L) or a CommitPoints -> (G, B*W, K, 3, L)."""
+    pts = as_commit_points(points)
     digits = digit_rows(scalars, c, fr_bits, G)
-    return bucket_accumulate(fq_spec, b3, points, digits, G, c, affine=affine)
+    return bucket_accumulate(fq_spec, b3, pts.points, digits, G, c, affine=pts.affine)
 
 
 def _tree_reduce_points(fq_spec, b3, pts: torch.Tensor) -> torch.Tensor:
@@ -299,26 +315,26 @@ def _reduce_buckets(fq_spec, b3, buckets):
 def msm_totals(
     fq_spec: FieldSpec,
     b3: ec.B3,
-    points: torch.Tensor,
+    points,
     scalars: torch.Tensor,
     fr_bits: int,
     c: int = 0,
     groups: int = 0,
-    affine: bool = False,
 ) -> torch.Tensor:
     """Device part of the MSM up to the per-window totals.
 
-    points (n, 3, L); scalars (n, Lr) or a batch (B, n, Lr).  Returns
-    (W, 3, L) or (B, W, 3, L); ``fold_windows_host`` finishes each.
-    ``affine``: the points have Z = 1 (``commit_points``).
+    points (n, 3, L) or a CommitPoints; scalars (n, Lr) or a batch
+    (B, n, Lr).  Returns (W, 3, L) or (B, W, 3, L); ``fold_windows_host``
+    finishes each.
     """
     batched = scalars.dim() == 3
     sc = scalars if batched else scalars[None]
-    n = points.shape[0]
+    pts = as_commit_points(points)
+    n = pts.points.shape[0]
     c = msm_window_size(n, c)
     W = num_windows(fr_bits + 1, c)
     G = groups if groups > 0 else group_count(n, c, sc.shape[0], W, fq_spec.n_limbs)
-    buckets = _accumulate(fq_spec, b3, points, sc, fr_bits, c, G, affine)
+    buckets = _accumulate(fq_spec, b3, pts, sc, fr_bits, c, G)
     totals = _reduce_buckets(fq_spec, b3, buckets)
     totals = totals.reshape(sc.shape[0], -1, 3, fq_spec.n_limbs)
     return totals if batched else totals[0]
@@ -348,36 +364,35 @@ def msm(fq_spec, Fq, b3, points, scalars, fr_bits: int, c: int = 0):
     return fold_windows_host(fq_spec, Fq, totals, c)
 
 
-class CommitPoints(NamedTuple):
-    """The points a commitment key's MSMs run over, and whether they are
-    the Z = 1 copy that K4a's affine instance takes."""
-
-    points: torch.Tensor
-    affine: bool
-
-
 def commit_points(spec: FieldSpec, points: torch.Tensor) -> CommitPoints:
     """A key's (N, 3, L) points as its commits take them: at L = 16 a Z = 1
     copy (``ec.normalize``), for K4a's affine instance; at L = 24 the points
     as they are.  Each key builds it once (``kzg.CommitterKey.msm_points``,
     ``ipa.CommitterKeyIPA.msm_points``) and never serializes it.  The copy
     changes the bucket words, not the points, so the commitments are the
-    same."""
-    if spec.n_limbs == 16:
-        return CommitPoints(ec.normalize(spec, points), True)
-    return CommitPoints(points, False)
+    same.  On the card it waits for the copy's kernels, so that a committer
+    on another CUDA stream (``parallel.BatchProver``'s rows) may read it at
+    once."""
+    if spec.n_limbs != 16:
+        return CommitPoints(points, False)
+    copy = ec.normalize(spec, points)
+    if copy.device.type == "cuda":
+        torch.cuda.current_stream(copy.device).synchronize()
+    return CommitPoints(copy, True)
 
 
-def commit_rows(ctx, b3, points: torch.Tensor, polys, affine: bool = False) -> list:
+def commit_rows(ctx, b3, points, polys) -> list:
     """One commitment per row of ``polys`` ((B, m, L) tensor or a list of
-    (m, L)) over the first m of ``points`` (``affine``: with Z = 1), as one
-    batched MSM on their device; host affine points (int pairs) or None."""
+    (m, L)) over the first m of ``points`` ((N, 3, L) or a CommitPoints), as
+    one batched MSM on their device; host affine points (int pairs) or
+    None."""
     stacked = polys if isinstance(polys, torch.Tensor) else torch.stack(list(polys))
     m = stacked.shape[1]
     c = msm_window_size(m)
     fr_bits = ctx.curve.fr.modulus.bit_length()
-    totals = msm_totals(ctx.fq_spec, b3, points[:m], stacked, fr_bits, c=c,
-                        affine=affine).cpu().numpy()
+    pts = as_commit_points(points)
+    pts = pts._replace(points=pts.points[:m])
+    totals = msm_totals(ctx.fq_spec, b3, pts, stacked, fr_bits, c=c).cpu().numpy()
     return [fold_windows_host(ctx.fq_spec, ctx.Fq, totals[i], c) for i in range(len(totals))]
 
 

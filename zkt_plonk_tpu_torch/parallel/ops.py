@@ -343,22 +343,20 @@ def pdivide_by_linear(spec: FieldSpec, body: torch.Tensor, tail: torch.Tensor, x
 
 
 def pmsm_totals(fq_spec, b3, points, scalars, fr_bits: int, mesh: Mesh, c: int = 0,
-                groups: int = 0, affine: bool = False) -> torch.Tensor:
+                groups: int = 0) -> torch.Tensor:
     """Sharded Pippenger up to the per-window totals ((B,) W, 3, L),
-    replicated: each rank accumulates its point shard (K4a; ``affine``:
-    points with Z = 1) and reduces its buckets, then the small per-rank
+    replicated: each rank accumulates its point shard (K4a; a tensor or an
+    ``msm.CommitPoints``) and reduces its buckets, then the small per-rank
     window totals are all-gathered and summed with log2(D) rounds of K4
     adds."""
-    tot = msm_mod.msm_totals(fq_spec, b3, points, scalars, fr_bits, c=c, groups=groups,
-                             affine=affine)
+    tot = msm_mod.msm_totals(fq_spec, b3, points, scalars, fr_bits, c=c, groups=groups)
     if mesh.D == 1:
         return tot
     return _tree_reduce_points(fq_spec, b3, mesh.all_gather(tot))
 
 
 def pcommit_totals(fq_spec, b3, powers_shard, tail_points, coeffs_shard, tail_coeffs,
-                   fr_bits: int, c: int, mesh: Mesh, groups: int = 0,
-                   affine: bool = False) -> torch.Tensor:
+                   fr_bits: int, c: int, mesh: Mesh, groups: int = 0) -> torch.Tensor:
     """Window totals of an MSM over (n sharded + 4 replicated-tail) rows.
 
     The prover commits (n+4)-coefficient polynomials: the n-part sharded,
@@ -367,9 +365,10 @@ def pcommit_totals(fq_spec, b3, powers_shard, tail_points, coeffs_shard, tail_co
     is never weighted).  ``c`` must be the window size of the host fold
     (``msm.msm_window_size(n + 4)`` of the global n), so that window totals
     align across ranks.  coeffs (B, m, L) with tails (B, 4, L), or unbatched.
+    The points are tensors, or ``msm.CommitPoints`` of one key's copy.
     """
-    points = torch.cat([powers_shard, tail_points])
+    body, tail = msm_mod.as_commit_points(powers_shard), msm_mod.as_commit_points(tail_points)
+    points = body._replace(points=torch.cat([body.points, tail.points]))
     tc = tail_coeffs if mesh.d == 0 else torch.zeros_like(tail_coeffs)
     scalars = torch.cat([coeffs_shard, tc], dim=-2)
-    return pmsm_totals(fq_spec, b3, points, scalars, fr_bits, mesh, c=c, groups=groups,
-                       affine=affine)
+    return pmsm_totals(fq_spec, b3, points, scalars, fr_bits, mesh, c=c, groups=groups)

@@ -109,9 +109,9 @@ class ShardedProver(RoundSchedule):
         self.pow4 = sh(prover.q4.pow4)
         self.ipow4 = sh(prover.q4.ipow4)
         self.t_dev = sh(prover.t_dev)
-        powers, self.msm_affine = prover.ck.msm_points
-        self.powers_body = shard_rows(mesh, powers[:n], axis=0)
-        self.powers_tail = powers[n : n + 4]
+        powers = prover.ck.msm_points
+        self.powers_body = powers._replace(points=shard_rows(mesh, powers.points[:n], axis=0))
+        self.powers_tail = powers._replace(points=powers.points[n : n + 4])
         self.zero_tail = fd.zeros(prover.spec, (4,), device=mesh.device)
         self.pk_padded = {name: BodyTail(sh(prover.pk.polys[name]), self.zero_tail)
                           for name in PK_NAMES}
@@ -225,7 +225,7 @@ class ShardedProver(RoundSchedule):
         ctx = prover.ctx
         totals = pops.pcommit_totals(
             ctx.fq_spec, prover.ck.b3, self.powers_body, self.powers_tail, polys.body, polys.tail,
-            ctx.curve.fr.modulus.bit_length(), self.msm_c, self.mesh, affine=self.msm_affine,
+            ctx.curve.fr.modulus.bit_length(), self.msm_c, self.mesh,
         ).cpu().numpy()
         return [msm_mod.fold_windows_host(ctx.fq_spec, ctx.Fq, totals[i], self.msm_c)
                 for i in range(len(totals))]

@@ -125,7 +125,7 @@ def main() -> int:
     ctx = make_context(args.curve)
     m = (1 << args.log_n) + 4
     ck, _ = kzg.setup(ctx, max_degree=m - 1, tau=987654321, device=dev)
-    points, affine = ck.msm_points
+    points = ck.msm_points
     fr_bits = ctx.curve.fr.modulus.bit_length()
     c = msm.msm_window_size(m)
     top = int(ctx.fr_spec.modulus_limbs[-1])
@@ -141,7 +141,8 @@ def main() -> int:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            msm.bucket_accumulate(ctx.fq_spec, ck.b3, points, digits, G, c, affine=affine)
+            msm.bucket_accumulate(ctx.fq_spec, ck.b3, points.points, digits, G, c,
+                                  affine=points.affine)
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
@@ -156,15 +157,14 @@ def main() -> int:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        totals = msm.msm_totals(ctx.fq_spec, ck.b3, points, scalars, fr_bits, c=c, groups=G,
-                                affine=affine)
+        totals = msm.msm_totals(ctx.fq_spec, ck.b3, points, scalars, fr_bits, c=c, groups=G)
         end.record()
         totals = totals.cpu().numpy()
         out = [msm.fold_windows_host(ctx.fq_spec, ctx.Fq, t, c) for t in totals]
         return out, start.elapsed_time(end), time.perf_counter() - t0
 
     L = ctx.fq_spec.n_limbs
-    print(f"card: {smi}  curve={args.curve} L={L} m={m} c={c} affine={affine} "
+    print(f"card: {smi}  curve={args.curve} L={L} m={m} c={c} affine={points.affine} "
           f"K4a resident rows={msm.resident_rows(L)}", flush=True)
     rows = []
     for B in batches:
@@ -208,7 +208,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     rule = rule_report(rows, {B: msm.group_count(m, c, B, W, L) for B in batches})
     record = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "curve": args.curve,
-              "affine": affine, "m": m, "c": c, "reps": args.reps, "resident_rows": msm.resident_rows(L), "rows": rows,
+              "affine": points.affine, "m": m, "c": c, "reps": args.reps,
+              "resident_rows": msm.resident_rows(L), "rows": rows,
               "best": {B: r["best_groups"] for B, r in rule.items()}, "rule": rule}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

@@ -3,34 +3,25 @@
 Usage (from the repository root, on a machine with a card):
 
     python -m zkt_plonk_tpu_torch.tools.time_k4a [--batches 1,2,3,6]
-        [--log-n 18] [--reps 5] [--variant NAME=FLAG[,FLAG...]]
-        [--out time_k4a.json]
-
-The file imports the package by its absolute name, so it also times
-another tree of the port: ``PYTHONPATH=<tree> python <this file>``.
+        [--log-n 18] [--reps 5] [--out time_k4a.json]
 
 At n = 2^log_n + 4 points (the 1024 points of a small SRS, Z = 1, repeated)
 and c = 8, for each batch of B random scalar vectors it times
-``msm.bucket_accumulate`` with the G of ``msm.group_count``, in each form
-the tree has (the projective instance, and the affine one where
-``bucket_accumulate`` takes ``affine=``), the forms in turns, ``--reps``
-times each, every call between two CUDA events; medians.  Beside each time
-the bound of the work the digits need (``affine_bound``: mixed adds, first
-hits and padding steps counted from the digits) and the bound that counts
-every step as a complete add (``projective_bound``, the projective form's).
-``--variant`` builds csrc/ec_bucket_accumulate.cu again with extra nvcc
-flags (``-D`` switches of the source) and times it the same way, beside
-the tree's own build.  Registers and spills come from ptxas (each build's
-log), resident blocks per SM from the library's occupancy exports.  The
-card's name and power limit are printed beside the numbers and the whole
-record is written as JSON to ``--out``.
+``msm.bucket_accumulate`` with the G of ``msm.group_count`` in both forms
+(the projective instance, and the affine one with ``affine=True``), the
+forms in turns, ``--reps`` times each, every call between two CUDA events;
+medians.  Beside each time the bound of the work the digits need
+(``bounds.affine_bound``: mixed adds, first hits and padding steps counted
+from the digits) and the bound that counts every step as a complete add
+(``bounds.projective_bound``, the projective form's).  Registers and
+spills come from ptxas (the build's log), resident blocks per SM from the
+library's occupancy exports (``_cuda.occupancy``).  The card's name and power limit are printed
+beside the numbers and the whole record is written as JSON to ``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
-import inspect
 import json
 import os
 import re
@@ -40,60 +31,7 @@ import subprocess
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12
-INT32_MUL_PER_S = 132 * 64 * 1.98e9
-# 32-bit multiplies at 8 words (chip_smoke.py): a product, a reduction, a
-# modular product and a mixed add (11 products, 8 reductions)
-PRODUCT_OPS = 2 * 8 * 8
-REDUCE_OPS = 8 + 2 * 8 * 8
-MODMUL_OPS = PRODUCT_OPS + REDUCE_OPS
-EC_MIXED_OPS = 11 * PRODUCT_OPS + 8 * REDUCE_OPS
-
-
-def bound_ms(nbytes: float, int_ops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = int_ops / INT32_MUL_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def step_counts(digits: torch.Tensor, n: int, G: int, K: int):
-    """(first hits, repeat hits, padding steps into a bucket already hit)
-    over the rows of these (BW, n_pad) digit codes: what the affine form
-    computes, two, eleven (with eight reductions) and three products each."""
-    BW, n_pad = digits.shape
-    S = n_pad // G
-    dev = digits.device
-    codes = digits.to(torch.int64)
-    mags = torch.where(codes < 0, ~codes, codes).reshape(BW, S, G).transpose(1, 2)  # (BW, G, S)
-    real = (torch.arange(S, device=dev)[None, :] * G + torch.arange(G, device=dev)[:, None]) < n
-    hit = torch.zeros((BW, G, K + 1), dtype=torch.bool, device=dev)
-    hit.scatter_(2, torch.where(real[None], mags, K), True)  # column K: the padding
-    first = int(hit[..., :K].sum())
-    repeat = int(real.sum()) * BW - first
-    padding = int((hit.gather(2, mags) & ~real[None]).sum())
-    return first, repeat, padding
-
-
-def affine_bound(digits: torch.Tensor, n: int, G: int, K: int, L: int = 16):
-    """The bound of the work the digits need: the points read once (x and y,
-    2 x 4L/2 bytes each), the digits read once and the bucket tensor written
-    once; the products of the step counts."""
-    BW, n_pad = digits.shape
-    first, repeat, padding = step_counts(digits, n, G, K)
-    nbytes = 2 * 2 * L * n + 2 * BW * n_pad + 3 * 4 * L * G * BW * K
-    ops = repeat * EC_MIXED_OPS + first * 2 * MODMUL_OPS + padding * 3 * MODMUL_OPS
-    return bound_ms(nbytes, ops)
-
-
-def projective_bound(n: int, BW: int, G: int, K: int, L: int = 16):
-    """Every one of the BW * n_pad steps a complete add (12 products and 9
-    reductions of NW = L/2 words); the points (all three coordinates) and
-    digits read once and the bucket tensor written once."""
-    n_pad = -(-n // G) * G
-    nw = L // 2
-    add_ops = 12 * 2 * nw * nw + 9 * (nw + 2 * nw * nw)
-    nbytes = 3 * 4 * L * n + 2 * BW * n_pad + 3 * 4 * L * G * BW * K
-    return bound_ms(nbytes, BW * n_pad * add_ops)
+from zkt_plonk_tpu_torch.tools.bounds import affine_bound, projective_bound, step_counts
 
 
 def ptxas_lines(log_path: str):
@@ -115,45 +53,12 @@ def ptxas_lines(log_path: str):
     return out
 
 
-def build_variant(name: str, flags):
-    """csrc/ec_bucket_accumulate.cu with the tree's nvcc flags plus
-    ``flags``; (loaded library, build log path)."""
-    from zkt_plonk_tpu_torch import _cuda
-
-    os.makedirs(_cuda.BUILD_DIR, exist_ok=True)
-    so = os.path.join(_cuda.BUILD_DIR, f"ec_bucket_accumulate-variant-{name}.so")
-    log = so[:-3] + ".log"
-    cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *flags, "-o", so,
-           os.path.join(_cuda.CSRC_DIR, "ec_bucket_accumulate.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    with open(log, "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"variant {name} failed to build:\n{proc.stdout}{proc.stderr}")
-    return _cuda._declare("ec_bucket_accumulate", ctypes.CDLL(so)), log
-
-
-def occupancy(cdll):
-    """{export: (blocks per SM, registers)} of the library's occupancy
-    exports at L = 16."""
-    out = {}
-    for export in ("zk_ec_bucket_accumulate_occupancy", "zk_ec_bucket_accumulate_affine_occupancy"):
-        if hasattr(cdll, export):
-            blocks, regs = ctypes.c_int(), ctypes.c_int()
-            err = getattr(cdll, export)(16, ctypes.byref(blocks), ctypes.byref(regs))
-            if err == 0:
-                out[export] = (blocks.value, regs.value)
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", default="1,2,3,6")
     ap.add_argument("--log-n", type=int, default=18)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=31)
-    ap.add_argument("--variant", action="append", default=[], metavar="NAME=FLAG[,FLAG...]",
-                    help="time ec_bucket_accumulate.cu built with these extra nvcc flags too")
     ap.add_argument("--out", default="time_k4a.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -179,25 +84,17 @@ def main() -> int:
     W = msm.num_windows(fr_bits + 1, c)
     top = int(ctx.fr_spec.modulus_limbs[-1])
     gen = np.random.default_rng(args.seed)
-    has_affine = "affine" in inspect.signature(msm.bucket_accumulate).parameters
-    forms = ["projective"] + (["affine"] if has_affine else [])
+    forms = ("projective", "affine")
 
     def call(form, digits, G):
-        kw = {"affine": True} if form == "affine" else {}
-        return msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c, **kw)
+        return msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c, affine=form == "affine")
 
-    # one launch builds and loads the tree's library
-    msm.bucket_accumulate(spec, ck.b3, ck.powers, torch.zeros((1, 1024), dtype=torch.int16,
-                                                              device=dev), 1024, c)
-    libs = {"tree": (_cuda._libs["ec_bucket_accumulate"],
-                     os.path.join(_cuda.BUILD_DIR, "ec_bucket_accumulate.log"))}
-    for variant in args.variant:
-        name, flags = variant.split("=", 1)
-        libs[name] = build_variant(name, flags.split(","))
-    builds = {}
-    for name, (cdll, log) in libs.items():
-        builds[name] = {"ptxas": ptxas_lines(log), "occupancy": occupancy(cdll)}
-        print(f"build {name}: {builds[name]}", flush=True)
+    # the occupancy call builds the library, and its log, if need be
+    occupancy = {inst: _cuda.occupancy(inst)
+                 for inst in ("ec_bucket_accumulate", "ec_bucket_accumulate/affine")}
+    build = {"occupancy": occupancy,
+             "ptxas": ptxas_lines(os.path.join(_cuda.BUILD_DIR, "ec_bucket_accumulate.log"))}
+    print(f"build: {build}", flush=True)
 
     rows = []
     for B in [int(b) for b in args.batches.split(",")]:
@@ -209,12 +106,9 @@ def main() -> int:
         first, repeat, padding = step_counts(digits, n, G, K)
         aff_b, aff_by = affine_bound(digits, n, G, K)
         proj_b, proj_by = projective_bound(n, BW, G, K)
-        runs = [(lib_name, form) for lib_name in libs for form in forms]
-        times = {run: [] for run in runs}
+        times = {form: [] for form in forms}
         for rep in range(args.reps + 1):  # the first round warms up
-            order = runs if rep % 2 == 0 else runs[::-1]
-            for lib_name, form in order:
-                _cuda._libs["ec_bucket_accumulate"] = libs[lib_name][0]
+            for form in (forms if rep % 2 == 0 else forms[::-1]):
                 torch.cuda.synchronize()
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
@@ -223,24 +117,23 @@ def main() -> int:
                 end.record()
                 end.synchronize()
                 if rep:
-                    times[lib_name, form].append(start.elapsed_time(end))
-        _cuda._libs["ec_bucket_accumulate"] = libs["tree"][0]
-        for (lib_name, form), ts in times.items():
+                    times[form].append(start.elapsed_time(end))
+        for form, ts in times.items():
             ms = statistics.median(ts)
-            row = {"batch": B, "groups": G, "steps": n // G + (n % G > 0), "build": lib_name,
+            row = {"batch": B, "groups": G, "steps": n // G + (n % G > 0),
                    "form": form, "ms": ms, "all_ms": ts,
                    "first_hits": first, "repeat_hits": repeat, "padding_hits": padding,
                    "affine_bound_ms": aff_b, "affine_bound_by": aff_by,
                    "projective_bound_ms": proj_b, "projective_bound_by": proj_by}
             rows.append(row)
-            print(f"B={B} G={G} {lib_name:>10s} {form:>10s} {ms:8.3f} ms  "
+            print(f"B={B} G={G} {form:>10s} {ms:8.3f} ms  "
                   f"bounds: affine {aff_b:.3f} ({aff_by}, {aff_b / ms:.0%}), "
                   f"all steps {proj_b:.3f} ({proj_by}, {proj_b / ms:.0%});  first hits "
                   f"{first / (first + repeat):.1%} of {first + repeat} steps", flush=True)
         del digits
         torch.cuda.empty_cache()
     record = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "n": n, "c": c,
-              "reps": args.reps, "builds": builds, "rows": rows}
+              "reps": args.reps, "build": build, "rows": rows}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)
