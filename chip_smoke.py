@@ -110,6 +110,7 @@ from zkt_plonk_tpu_torch.tools.bounds import (
     EC_ADD_OPS, EC_ADD_OPS_24, MODMUL_OPS, MODMUL_OPS_24, REDUCE_OPS, affine_bound, bound_ms,
     projective_bound, step_counts,
 )
+from zkt_plonk_tpu_torch.utils import profiling
 
 ELEM_BYTES = 64  # one field element: 16 limbs of int32
 
@@ -980,24 +981,10 @@ def device_busy_share(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory(prefix="zkt-trace-") as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("ph") == "X"
-                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    if not spans:
+    busy = profiling.union([(a, b) for _, _, a, b in profiling.device_intervals(prof)])
+    if not busy:
         return None
-    busy, lo, hi = 0.0, spans[0][0], spans[0][1]
-    for start, end in spans[1:]:
-        if start > hi:
-            busy += hi - lo
-            lo, hi = start, end
-        else:
-            hi = max(hi, end)
-    busy += hi - lo
-    return round(busy / 1e6 / wall, 4)
+    return round(sum(b - a for a, b in busy) / wall, 4)
 
 
 def batch_phase(dev, inst, compiled, circuit, pub_inputs, k=BATCH_ROWS):

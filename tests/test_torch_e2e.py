@@ -12,8 +12,9 @@
 (e) with the Merlin transcript of each package's ``config`` (the CLI's
     default), the same TinyCircuit, SRS and seed give byte-equal proofs in
     both packages, and the port's verifies and fails its tamper probes;
-(f) with ``ZKT_PLONK_TIMING`` on, the prover prints its seven sections
-    and proves the same bytes;
+(f) with the span recorder (``utils/profiling``) on, the proof records
+    its spans and counts, and proves the same bytes; off, it records
+    nothing;
 and the port imports with neither ``jax`` nor ``zkt_plonk_tpu`` loaded,
 as a whole and module by module for the CLI's modules, the IPA, the
 scheme dispatch, the withdraw instance and the parallel layer.
@@ -129,21 +130,77 @@ def test_verify_and_tamper_probes(golden):
         inst.verify(compiled, tampered, [8])
 
 
-def test_timing_sections_change_nothing(golden, capsys):
-    """With ``ZKT_PLONK_TIMING`` on, the prover prints its seven sections
-    and still proves the golden bytes."""
+ROUNDS = ("witness", "round1+2", "round3", "round4", "round5", "linearization", "openings")
+
+
+def test_timing_sections_change_nothing(golden):
+    """With the span recorder on, one proof records its statement and its
+    prover's seven round spans and the spans inside them, with their
+    parents and one request id, counts what it stages, waits for and asks
+    of K4a, and still proves the golden bytes."""
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.ops import msm
     from zkt_plonk_tpu_torch.utils import profiling
 
     inst, compiled, _ = golden
-    profiling.timing_enable(True)
+    c0, adds0 = profiling.snapshot(), _cuda.work["ec_bucket_adds"]
+    profiling.drain()
+    profiling.enable()
     try:
         proof = inst.prove(compiled, TinyCircuit(lt), rng=random.Random(9))
     finally:
-        profiling.timing_enable(False)
-    err = capsys.readouterr().err
-    for name in ("witness gather", "round1+2 commit a/b/c/t/h1/h2", "round3 z1/z2",
-                 "round4 quotient", "round5 evaluations", "linearization", "openings"):
-        assert f"[timing] {name}: " in err, name
+        profiling.enable(False)
+    spans = profiling.drain()
+    assert _digest(inst, proof) == (802, GOLDEN)
+
+    by_index = {s.index: s for s in spans}
+
+    def path(s):
+        return s.name if s.parent == -1 else f"{path(by_index[s.parent])}/{s.name}"
+
+    paths = [path(s) for s in spans]
+    assert {s.request for s in spans} == {spans[0].request}
+    assert {s.thread for s in spans} == {spans[0].thread}
+    assert [p for p in paths if "/" not in p] == ["statement", "prove"]
+    assert sorted(p for p in paths if p.startswith("statement/")) == [
+        "statement/seed_transcript", "statement/synthesize"]
+    children = [p.split("/")[1] for p in paths if p.count("/") == 1 and p.startswith("prove/")]
+    assert set(children) == set(ROUNDS) | {"stage", "lookup_sort", "linearization_terms"}
+    for rnd in ROUNDS:
+        assert children.count(rnd) == 1, rnd
+    commits = [p for p in paths if p.endswith("/commit")]
+    assert sorted(commits) == sorted(["prove/round1+2/commit", "prove/round3/commit",
+                                      "prove/round4/commit"] + ["prove/openings/commit"] * 2)
+    for c in set(commits):
+        for inner in ("msm", "wait", "fold"):
+            assert paths.count(f"{c}/{inner}") == commits.count(c), (c, inner)
+    assert paths.count("prove/round5/wait") == 2
+    for s in spans:  # every span lies inside its parent
+        if s.parent != -1:
+            parent = by_index[s.parent]
+            assert parent.start <= s.start <= s.end <= parent.end
+
+    counts = {k: v - c0[k] for k, v in profiling.snapshot().items()}
+    assert counts["host_waits"] == sum(p.endswith("/wait") for p in paths) == 7
+    assert counts["h2d_copies"] > paths.count("prove/stage") and counts["h2d_bytes"] > 0
+    # B x W x n per batch: 6 + 2 + 3 + 1 + 1 polynomials of n + 4 = 68
+    # coefficients, W = 64 windows of c = 4 bits
+    fr_bits = inst.ctx.curve.fr.modulus.bit_length()
+    want = 13 * msm.num_windows(fr_bits + 1, msm.msm_window_size(68)) * 68
+    assert _cuda.work["ec_bucket_adds"] - adds0 == want
+
+
+def test_a_proof_with_the_recorder_off_records_nothing(golden):
+    """Off, the recorder keeps no span; the counters count all the same."""
+    from zkt_plonk_tpu_torch.utils import profiling
+
+    inst, compiled, _ = golden
+    assert not profiling.enabled()
+    profiling.drain()
+    waits0 = profiling.snapshot()["host_waits"]
+    proof = inst.prove(compiled, TinyCircuit(lt), rng=random.Random(9))
+    assert profiling.drain() == []
+    assert profiling.snapshot()["host_waits"] - waits0 == 7
     assert _digest(inst, proof) == (802, GOLDEN)
 
 

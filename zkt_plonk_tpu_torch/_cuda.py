@@ -14,6 +14,12 @@ mode: ``ec_add_complete`` is K4 at L = 16, ``ec_add_complete/L24`` K4 at
 L = 24 (the BLS12 base fields), ``ntt_col_pass/strict`` K3 in its strict
 mode (``reduction_consts``), ``ec_bucket_accumulate/affine`` K4a at
 L = 16 on points with Z = 1.
+
+``work`` counts, beside the launches and under the same lock, the work
+that a kernel's caller asks of it, computed from the call's arguments
+whatever implements it: ``ec_bucket_adds``, the B x n x W bucket adds of
+each ``ops/msm.bucket_accumulate`` call (B scalar vectors of W windows over
+n points, before padding), on the card and in the plain version alike.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ EXTRA_INSTANCES = (
 INSTANCES = KERNELS + EXTRA_INSTANCES
 
 launches: Dict[str, int] = {name: 0 for name in INSTANCES}
+work: Dict[str, int] = {"ec_bucket_adds": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -58,6 +65,12 @@ def count(name: str) -> None:
     """Add one launch of instance ``name`` (from ``instance``)."""
     with _count_lock:
         launches[name] += 1
+
+
+def count_work(name: str, k: int) -> None:
+    """Add ``k`` to the work counter ``name``."""
+    with _count_lock:
+        work[name] += k
 
 
 def reset_launches() -> None:

@@ -23,6 +23,7 @@ from ..cs.variable import LTVariable, ZERO, lt
 from ..hashing.merkle import PoECircuit
 from ..hashing.poseidon.constants import PoseidonConstants
 from ..hashing.poseidon.spec import Poseidon
+from ..utils.profiling import section
 
 AMOUNT_BITS = 64  # A = u64 in the reference
 
@@ -69,45 +70,48 @@ class WithdrawCircuit:
         for amount_var, identifier_var, secret, poe in zip(
             amount_in_vars, identifier_vars, self.secrets, self.poe_circuits
         ):
-            secret_var = lt(cs.assign_variable(secret))
-            commitment_var = hasher.hash(cs, [secret_var])
+            with section("note"):
+                secret_var = lt(cs.assign_variable(secret))
+                commitment_var = hasher.hash(cs, [secret_var])
 
-            secret_inv_var = cs.div_gate(one_var, secret_var)
-            nullifier_var = hasher.hash(cs, [lt(secret_inv_var)])
-            cs.set_variable_public(nullifier_var)
+                secret_inv_var = cs.div_gate(one_var, secret_var)
+                nullifier_var = hasher.hash(cs, [lt(secret_inv_var)])
+                cs.set_variable_public(nullifier_var)
 
-            leaf_var = hasher.hash(
-                cs, [lt(identifier_var), lt(amount_var), commitment_var]
-            )
+                leaf_var = hasher.hash(
+                    cs, [lt(identifier_var), lt(amount_var), commitment_var]
+                )
 
-            root_var, _ = poe.synthesize(cs, hasher, leaf_var)
-            cs.equal_constrain(root_var, pub_root_var)
+                root_var, _ = poe.synthesize(cs, hasher, leaf_var)
+                cs.equal_constrain(root_var, pub_root_var)
 
-            cs.lookup_constrain(lt(identifier_var))
+                cs.lookup_constrain(lt(identifier_var))
 
         # -- step 2: balance proof -----------------------------------------
-        amount_out_bits = []
-        for i in range(AMOUNT_BITS):
-            bit = (amount_out >> i) & 1
-            var = cs.assign_variable(bit)
-            amount_out_bits.append(cs.boolean_gate(var))
-        amount_out_var = cs.bits_le_constrain(amount_out_bits)
+        with section("balance"):
+            amount_out_bits = []
+            for i in range(AMOUNT_BITS):
+                bit = (amount_out >> i) & 1
+                var = cs.assign_variable(bit)
+                amount_out_bits.append(cs.boolean_gate(var))
+            amount_out_var = cs.bits_le_constrain(amount_out_bits)
 
-        left_var = amount_in_vars[0]
-        right_var = ZERO
-        for amount_var in amount_in_vars[1:]:
-            right_var = cs.add_gate(lt(right_var), lt(amount_var))
-        sels = cs.sels().with_left(-1).with_right(-1).with_out(1)
-        cs.arith_constrain(
-            left_var, right_var, amount_out_var, sels, pi=self.withdraw_amount
-        )
+            left_var = amount_in_vars[0]
+            right_var = ZERO
+            for amount_var in amount_in_vars[1:]:
+                right_var = cs.add_gate(lt(right_var), lt(amount_var))
+            sels = cs.sels().with_left(-1).with_right(-1).with_out(1)
+            cs.arith_constrain(
+                left_var, right_var, amount_out_var, sels, pi=self.withdraw_amount
+            )
 
         # -- step 3: new note commitment -----------------------------------
-        new_secret_var = lt(cs.assign_variable(self.new_secret))
-        new_identifier_var = lt(cs.assign_variable(self.new_identifier))
-        new_commitment_var = hasher.hash(cs, [new_secret_var])
-        new_leaf_var = hasher.hash(
-            cs, [new_identifier_var, lt(amount_out_var), new_commitment_var]
-        )
-        cs.set_variable_public(new_identifier_var)
-        cs.set_variable_public(new_leaf_var)
+        with section("new_note"):
+            new_secret_var = lt(cs.assign_variable(self.new_secret))
+            new_identifier_var = lt(cs.assign_variable(self.new_identifier))
+            new_commitment_var = hasher.hash(cs, [new_secret_var])
+            new_leaf_var = hasher.hash(
+                cs, [new_identifier_var, lt(amount_out_var), new_commitment_var]
+            )
+            cs.set_variable_public(new_identifier_var)
+            cs.set_variable_public(new_leaf_var)

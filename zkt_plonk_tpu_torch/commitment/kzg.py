@@ -28,6 +28,7 @@ from ..curves.context import CurveCtx
 from ..fields import device as fd
 from ..fields.limbs import ints_to_array
 from ..ops import ec, msm
+from ..utils.profiling import section
 
 
 @dataclass(eq=False)
@@ -133,7 +134,8 @@ class Committer:
     def commit_many(self, polys) -> list:
         """polys: (B, m, L) tensor or list of (m, L).  Returns a list of host
         affine points.  All polys share one length (one window size)."""
-        return msm.commit_rows(self.ck.ctx, self.ck.b3, self.ck.msm_points, polys)
+        with section("commit"):
+            return msm.commit_rows(self.ck.ctx, self.ck.b3, self.ck.msm_points, polys)
 
 
 def divide_by_linear(

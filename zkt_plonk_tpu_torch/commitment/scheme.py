@@ -16,6 +16,7 @@ from typing import List, Optional, Sequence, Tuple
 
 from ..fields.limbs import array_to_ints
 from ..ops import msm
+from ..utils import profiling
 from . import ipa, kzg
 
 Point = Optional[Tuple[int, int]]
@@ -64,7 +65,8 @@ class IPAScheme:
         def commit_many(self, polys) -> List[Point]:
             if polys[0].shape[0] > len(self.ck.gens):
                 raise ValueError("polynomial degree exceeds committer key")
-            return msm.commit_rows(self.ck.ctx, self.ck.b3, self.ck.msm_points, polys)
+            with profiling.section("commit"):
+                return msm.commit_rows(self.ck.ctx, self.ck.b3, self.ck.msm_points, polys)
 
     def committer(self, ck):
         return IPAScheme._Committer(ck)
@@ -81,7 +83,8 @@ class IPAScheme:
 
     def open_batch(self, prover, polys, point: int, eta: int, label: bytes):
         """Host opening: the rows decoded to ints, as in the JAX package."""
-        rows = polys.cpu().numpy()
+        with profiling.waiting():
+            rows = polys.cpu().numpy()
         host_polys = [array_to_ints(rows[i]) for i in range(len(rows))]
         proof, _v = ipa.open_batch(prover.ck, host_polys, point, eta, label=label)
         return proof

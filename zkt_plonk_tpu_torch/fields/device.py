@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
+from ..utils import profiling
 from . import cuda as fc
 from .limbs import FieldSpec, int_to_limbs
 
@@ -47,10 +48,9 @@ def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 def constant(spec: FieldSpec, value: int, shape=(), device="cuda") -> torch.Tensor:
     dev = _cuda.require_cuda(device)
-    limbs = torch.tensor(
-        int_to_limbs(value % spec.modulus, spec.n_limbs).astype("int32"), device=dev
-    )
-    return limbs.expand(*shape, spec.n_limbs)
+    host = int_to_limbs(value % spec.modulus, spec.n_limbs).astype("int32")
+    profiling.count(h2d_copies=1, h2d_bytes=host.nbytes)
+    return torch.tensor(host, device=dev).expand(*shape, spec.n_limbs)
 
 
 def one(spec: FieldSpec, shape=(), device="cuda") -> torch.Tensor:

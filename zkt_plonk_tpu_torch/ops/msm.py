@@ -31,6 +31,7 @@ import torch
 from .. import _cuda
 from ..fields import cuda as fc
 from ..fields.limbs import LIMB_BITS, FieldSpec
+from ..utils import profiling
 from . import ec, ec_cuda
 
 DEFAULT_WINDOW = 8
@@ -213,6 +214,7 @@ def bucket_accumulate(
     key = _cuda.instance("ec_bucket_accumulate", L, affine=affine)
     if affine and c > ACC_AFFINE_MAX_C:
         raise ValueError(f"{key} takes windows up to c = {ACC_AFFINE_MAX_C}, got {c}")
+    _cuda.count_work("ec_bucket_adds", BW * n)
     if points.device.type == "cpu" and digits.device.type == "cpu":
         lo, hi = torch.aminmax(digits)
         if hi.item() >= K or ~lo.item() >= K:
@@ -392,8 +394,18 @@ def commit_rows(ctx, b3, points, polys) -> list:
     fr_bits = ctx.curve.fr.modulus.bit_length()
     pts = as_commit_points(points)
     pts = pts._replace(points=pts.points[:m])
-    totals = msm_totals(ctx.fq_spec, b3, pts, stacked, fr_bits, c=c).cpu().numpy()
-    return [fold_windows_host(ctx.fq_spec, ctx.Fq, totals[i], c) for i in range(len(totals))]
+    with profiling.section("msm"):
+        totals = msm_totals(ctx.fq_spec, b3, pts, stacked, fr_bits, c=c)
+    return fold_rows(ctx, totals, c)
+
+
+def fold_rows(ctx, totals: torch.Tensor, c: int) -> list:
+    """The host's part of a commit batch: wait for the (B, W, 3, L) window
+    totals, then fold each row (``fold_windows_host``)."""
+    with profiling.waiting():
+        host = totals.cpu().numpy()
+    with profiling.section("fold"):
+        return [fold_windows_host(ctx.fq_spec, ctx.Fq, host[i], c) for i in range(len(host))]
 
 
 # ---------------------------------------------------------------------------

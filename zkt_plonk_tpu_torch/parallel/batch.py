@@ -23,6 +23,7 @@ from typing import List, Sequence
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
 from .mesh import Mesh2D
 from .prover import ShardedProver
 
@@ -53,7 +54,8 @@ class BatchProver:
                 out = {i: self.rows[r].prove(composers[i], transcripts[i], rngs[i])
                        for i in range(r, k, self.data)}
             if stream is not None:
-                stream.synchronize()
+                with profiling.waiting():
+                    stream.synchronize()
             return out
 
         if self.device.type == "cuda":

@@ -31,6 +31,7 @@ import torch
 from ..fields import device as fd
 from ..ops import msm as msm_mod
 from ..proof_system.prover import PK_NAMES, RoundSchedule, grand_products, quotient_evals
+from ..utils.profiling import section
 from . import ops as pops
 from .mesh import Mesh, shard_rows
 
@@ -223,9 +224,10 @@ class ShardedProver(RoundSchedule):
         same on every rank."""
         prover = self.prover
         ctx = prover.ctx
-        totals = pops.pcommit_totals(
-            ctx.fq_spec, prover.ck.b3, self.powers_body, self.powers_tail, polys.body, polys.tail,
-            ctx.curve.fr.modulus.bit_length(), self.msm_c, self.mesh,
-        ).cpu().numpy()
-        return [msm_mod.fold_windows_host(ctx.fq_spec, ctx.Fq, totals[i], self.msm_c)
-                for i in range(len(totals))]
+        with section("commit"):
+            with section("msm"):
+                totals = pops.pcommit_totals(
+                    ctx.fq_spec, prover.ck.b3, self.powers_body, self.powers_tail, polys.body,
+                    polys.tail, ctx.curve.fr.modulus.bit_length(), self.msm_c, self.mesh,
+                )
+            return msm_mod.fold_rows(ctx, totals, self.msm_c)

@@ -23,6 +23,7 @@ from .proof_system.keys import ExtendedProverKey, ProverKey, VerifierKey
 from .proof_system.proof import Proof
 from .proof_system.prover import Prover
 from .transcript import EthereumTranscript
+from .utils.profiling import begin_request, section
 
 TRANSCRIPT_LABEL = "ZKT Plonk"
 
@@ -74,12 +75,18 @@ class ZKTPlonk:
         """What a prover's ``prove`` takes besides the rng: the proving
         composer of ``circuit``'s witness and the transcript seeded with
         ``compiled``'s verifier key (a ``parallel.BatchProver`` takes one
-        of each per proof)."""
-        cs = ConstraintSystem(self.p, setup=False, lookup_table=self.table)
-        circuit.synthesize(cs)
-        transcript = self.transcript_factory(TRANSCRIPT_LABEL)
-        compiled.vk.seed_transcript(transcript)
-        return cs.proving, transcript
+        of each per proof).  It begins a new request of the span recorder
+        (``utils/profiling``) on this thread, which the prover's ``prove``
+        that follows on it continues."""
+        begin_request()
+        with section("statement"):
+            cs = ConstraintSystem(self.p, setup=False, lookup_table=self.table)
+            with section("synthesize"):
+                circuit.synthesize(cs)
+            transcript = self.transcript_factory(TRANSCRIPT_LABEL)
+            with section("seed_transcript"):
+                compiled.vk.seed_transcript(transcript)
+            return cs.proving, transcript
 
     def prover(self, compiled: CompiledCircuit) -> Prover:
         """``compiled``'s single-device prover, built on first use."""

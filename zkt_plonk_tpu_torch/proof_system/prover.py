@@ -36,9 +36,10 @@ from ..fields import device as fd
 from ..fields.limbs import ints_to_array
 from ..ops import ntt
 from ..utils.domain import make_domain
-from ..utils.profiling import section
+from ..utils.profiling import section, waiting
 from .keys import ExtendedProverKey, ProverKey, VerifierKey
 from .proof import Proof, ProofEvaluations
+from .setup import to_device
 
 PK_NAMES = ("sigma1", "sigma2", "sigma3", "q_lookup", "q_table",
             "q_m", "q_l", "q_r", "q_o", "q_c")
@@ -213,49 +214,59 @@ class RoundSchedule:
 
     def stack_rows(self, cols) -> torch.Tensor:
         lo, hi = self.row_block
-        arr = np.stack([ints_to_array(col[lo:hi], self.spec.n_limbs) for col in cols])
-        return torch.from_numpy(arr.astype(np.int32)).to(self.device)
+        with section("stage"):
+            return to_device(
+                np.stack([ints_to_array(col[lo:hi], self.spec.n_limbs) for col in cols]),
+                self.device)
 
     def vec(self, vals: List[int]) -> torch.Tensor:
         """Host scalars -> (k, L) int32 tensor on the device."""
-        arr = ints_to_array([v % self.p for v in vals], self.spec.n_limbs).astype(np.int32)
-        return torch.from_numpy(arr).to(self.device)
+        with section("stage"):
+            return self._vec(vals)
+
+    def _vec(self, vals: List[int]) -> torch.Tensor:
+        return to_device(ints_to_array([v % self.p for v in vals], self.spec.n_limbs), self.device)
 
     def blinders(self, rng, counts: List[int]) -> torch.Tensor:
-        rows = []
-        for k in counts:
-            rows.append([rng.randrange(self.p) for _ in range(k)] + [0] * (4 - k))
-        return torch.stack([self.vec(r) for r in rows])
+        with section("stage"):
+            rows = []
+            for k in counts:
+                rows.append([rng.randrange(self.p) for _ in range(k)] + [0] * (4 - k))
+            return torch.stack([self._vec(r) for r in rows])
 
     # ------------------------------------------------------------------
     # host orchestration
     # ------------------------------------------------------------------
 
     def prove(self, composer: ProvingComposer, transcript, rng) -> Proof:
+        with section("prove"):
+            return self._prove(composer, transcript, rng)
+
+    def _prove(self, composer: ProvingComposer, transcript, rng) -> Proof:
         n, p, spec = self.n, self.p, self.spec
-        dev = self.device
         composer.pad_to(n)
 
         # PI to transcript (``prove.rs:110``)
         transcript.append_scalars("pi", composer.pi_values())
 
         # --- round 1: wire polynomials --------------------------------
-        with section("witness gather"):
+        with section("witness"):
             a_ints, b_ints, c_ints = composer.wire_evals()
         wires = self.stack_rows([a_ints, b_ints, c_ints])
         wire_blinders = self.blinders(rng, [2, 2, 2])
 
         # --- round 2 witness ------------------------------------------
-        ql = self.epk.q_lookup_evals_host
-        f_ints = [(ql[i] * c_ints[i]) % p for i in range(n)]
-        h1_ints, h2_ints = combine_split(self.t_ints, f_ints)
-        h1_ints += [0] * (n - len(h1_ints))
-        h2_ints += [0] * (n - len(h2_ints))
+        with section("lookup_sort"):
+            ql = self.epk.q_lookup_evals_host
+            f_ints = [(ql[i] * c_ints[i]) % p for i in range(n)]
+            h1_ints, h2_ints = combine_split(self.t_ints, f_ints)
+            h1_ints += [0] * (n - len(h1_ints))
+            h2_ints += [0] * (n - len(h2_ints))
         lookup_evals = torch.cat([self.t_dev[None], self.stack_rows([h1_ints, h2_ints])])
         lookup_blinders = self.blinders(rng, [0, 3, 2])
 
         # rounds 1+2 as one phase: 6-poly iNTT batch + 6-MSM batch
-        with section("round1+2 commit a/b/c/t/h1/h2", sync=dev):
+        with section("round1+2"):
             six_polys = self.commit_batch(
                 torch.cat([wires, lookup_evals]), torch.cat([wire_blinders, lookup_blinders])
             )
@@ -281,7 +292,7 @@ class RoundSchedule:
         z_scalars = self.vec(
             [beta, beta * K1 % p, beta * K2 % p, gamma, delta, eps_1pd, (1 + delta) % p, epsilon]
         )
-        with section("round3 z1/z2", sync=dev):
+        with section("round3"):
             z_polys = self.z_round(
                 wires, self.rows(f_ints), lookup_evals[0], lookup_evals[1], lookup_evals[2],
                 z_scalars, z_blinders,
@@ -305,7 +316,7 @@ class RoundSchedule:
         a5 = a4 * alpha % p
         q_scalars = self.vec([beta, beta * K1 % p, beta * K2 % p, gamma, delta, epsilon, eps_1pd])
         q_weights = self.vec([alpha, alpha, a3 * (1 + delta) % p, a3, a2, a4, a5])
-        with section("round4 quotient", sync=dev):
+        with section("round4"):
             q_polys = self.quotient_round(polys8, pi_evals, q_scalars, q_weights, q_blinders)
             del polys8
             q_aff = self.commit_many(q_polys)
@@ -323,10 +334,14 @@ class RoundSchedule:
              pkp["q_lookup"], th_polys[0], th_polys[2]]
         )
         polys_wxi = self.stack([z_polys[0], th_polys[0], z_polys[1], th_polys[1]])  # z1, t, z2, h1
-        with section("round5 evaluations", sync=dev):
+        with section("round5"):
             ev_xi, ev_wxi = self.evaluate(polys_xi, polys_wxi, xi, wxi)
-            ev_xi_i = spec.decode(ev_xi.cpu().numpy())
-            ev_wxi_i = spec.decode(ev_wxi.cpu().numpy())
+            with waiting():
+                ev_xi_host = ev_xi.cpu().numpy()
+            with waiting():
+                ev_wxi_host = ev_wxi.cpu().numpy()
+            ev_xi_i = spec.decode(ev_xi_host)
+            ev_wxi_i = spec.decode(ev_wxi_host)
 
         evals = ProofEvaluations(
             a=ev_xi_i[0],
@@ -347,11 +362,12 @@ class RoundSchedule:
 
         zh_eval = (pow(xi, n, p) - 1) % p
         l1_eval = zh_eval * pow(n * (xi - 1) % p, -1, p) % p
-        scalars, poly_list = self._linearization_terms(
-            evals, alpha, beta, gamma, delta, epsilon, xi, zh_eval, l1_eval,
-            pkp, abc_polys, z_polys, th_polys, q_polys,
-        )
-        with section("linearization", sync=dev):
+        with section("linearization_terms"):
+            scalars, poly_list = self._linearization_terms(
+                evals, alpha, beta, gamma, delta, epsilon, xi, zh_eval, l1_eval,
+                pkp, abc_polys, z_polys, th_polys, q_polys,
+            )
+        with section("linearization"):
             r_poly = self.linearize(self.stack(poly_list), self.vec(scalars))
 
         # --- openings --------------------------------------------------
@@ -361,7 +377,7 @@ class RoundSchedule:
              pkp["q_lookup"], th_polys[0], th_polys[2]]
         )
         saw_polys = self.stack([z_polys[0], z_polys[1], th_polys[0], th_polys[1]])
-        with section("openings", sync=dev):
+        with section("openings"):
             aw_aff, saw_aff = self.openings(aw_polys, xi, saw_polys, wxi, eta)
 
         return Proof(

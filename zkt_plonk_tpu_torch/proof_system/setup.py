@@ -20,6 +20,7 @@ from ..cs.composer import SetupComposer
 from ..cs.lookup import LookupTable
 from ..fields.limbs import array_to_ints, ints_to_array
 from ..ops import ntt, ntt_host
+from ..utils import profiling
 from ..utils.domain import Domain, make_domain
 from .keys import POLY_ORDER, ExtendedProverKey, ProverKey, VerifierKey
 
@@ -27,8 +28,11 @@ MIN_CIRCUIT_SIZE = 8  # quotient split needs 3n+6 <= 4n
 
 
 def to_device(arr: np.ndarray, device) -> torch.Tensor:
-    """Host uint32 limb array -> int32 tensor on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(arr).astype(np.int32)).to(device)
+    """Host uint32 limb array -> int32 tensor on ``device``, counted in the
+    recorder's ``h2d_copies``/``h2d_bytes``."""
+    arr = np.ascontiguousarray(arr).astype(np.int32)
+    profiling.count(h2d_copies=1, h2d_bytes=arr.nbytes)
+    return torch.from_numpy(arr).to(device)
 
 
 def setup(

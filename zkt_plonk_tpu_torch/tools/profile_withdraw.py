@@ -1,4 +1,4 @@
-"""Where the time of one withdraw proof goes, on one CUDA card.
+"""Where the time of a withdraw proof goes, on one CUDA card.
 
 Usage (from the repository root, on a machine with a card):
 
@@ -12,27 +12,31 @@ another tree of the port: ``PYTHONPATH=<tree> python <this file>``.
 It builds the withdraw circuit (default: the reference's HEIGHT=48,
 NOTES=3, TABLE=1024, n = 2^18; on BN254 with the Ethereum transcript, or
 with ``--curve bls12_381`` on BLS12-381 with Merlin and 48-byte
-coordinates), sets up the SRS, compiles, proves once to warm up, then
-  1. proves again (the proof's sha256 is reported: the seed is fixed, so
-     two trees that prove the same bytes report the same digest) with
-     every prover phase timed on the host clock around a
-     ``torch.cuda.synchronize()`` (synthesis, the iNTT/blinding batches, the
-     MSM commit batches, the z and quotient rounds, evaluations,
-     linearization, openings; the remainder is host work in ``prove``),
-     counting the launches of each kernel in that proof, and those inside
-     its NTTs (``ops/ntt_mr.transform``);
-  2. proves a third time under ``torch.profiler`` and sums the device time
-     of every kernel by name; each NTT runs inside a ``record_function``
-     range, whose span on the device (first kernel to last, gaps included)
-     is reported apart, and so are the MSM's EC kernels K4a and K4; busy
-     time over the wall time of that proof gives the device's busy share
-     (profiling slows the host, so that proof's wall time is longer than the
-     unprofiled one).
-With ``--sharded`` the proofs go through ``parallel.ShardedProver`` on a
-world-size-1 NCCL mesh instead (the same rounds on (body, tail) shards,
-the same bytes), with the same phases timed.  The card's name and power
-limit are printed beside the numbers, and the whole record is written as
-JSON to ``--out``.
+coordinates), sets up the SRS, compiles and proves once to warm up.  It
+then times one ``section`` of the span recorder (``utils/profiling``) off
+and on, and proves 2 x ``PROOFS`` (12) times under ``torch.profiler`` (CUDA
+activity), the recorder off and on in turns (off, on, on, off, ...), each
+proof ``ZKTPlonk.prove`` then ``torch.cuda.synchronize()`` on the host
+clock.  From the recorded proofs it reports, per proof:
+
+* every span by its path (``prove/round1+2/commit/fold``): its count, its
+  host milliseconds, its self milliseconds (the part of its interval that
+  none of its child spans covers) and the milliseconds of its self time in
+  which the card ran nothing; the self shares of ``prove`` and
+  ``statement``;
+* the counters (``profiling.counters``, ``_cuda.work``) and the launches;
+* the card's busy time (the union of its kernel, memcpy and memset
+  intervals), its idle time inside the ``prove`` spans, and the longest
+  idle gaps of the recorded proofs, each named by the path of the
+  innermost span open at its middle;
+* device time by kernel, and the MSM's EC kernels K4a and K4 and the NTT
+  kernel K3 apart;
+and the mean wall time of a proof with the recorder off and on, the first
+proof's sha256 (the seed is fixed, so two trees that prove the same bytes
+report the same digest) and the card's name and power limit.  With
+``--sharded`` the proofs go through ``parallel.ShardedProver`` on a
+world-size-1 NCCL mesh (the same rounds on (body, tail) shards, the same
+bytes).  The whole record is written as JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -42,43 +46,57 @@ import hashlib
 import json
 import os
 import random
+import re
 import subprocess
 import time
 from collections import defaultdict
+from typing import Dict, Sequence
 
 import torch
 
+from zkt_plonk_tpu_torch.utils.profiling import (
+    Interval, covered, idle_gaps, own_intervals, paths, self_seconds, union)
 
 # device kernel names of the MSM's EC kernels (csrc/ec_bucket_accumulate.cu,
-# csrc/ec_add_complete.cu), every instance
-EC_KERNELS = {
+# csrc/ec_add_complete.cu), every instance, and of the NTT (csrc/ntt_col_pass.cu)
+KERNELS = {
     "K4a": ("bucket_accumulate_kernel", "bucket_accumulate_affine_kernel"),
     "K4": ("ec_add_complete_kernel", "ec_add_staged_kernel"),
+    "K3": ("ntt_fused_pass_kernel",),
 }
+PROOFS = 6  # proofs with the recorder on, and as many with it off
 
 
-def _sync():
-    torch.cuda.synchronize()
+def phase_table(spans, proofs: int, busy: Sequence[Interval] = ()) -> Dict[str, dict]:
+    """Per span path: spans, host ms, self ms and, of the self time, the ms
+    in which the card ran nothing (``busy``: the union of its intervals),
+    each per proof."""
+    names, owns = paths(spans), own_intervals(spans)
+    table = defaultdict(lambda: {"count": 0.0, "ms": 0.0, "self_ms": 0.0, "idle_ms": 0.0})
+    for s in spans:
+        row = table[names[s.index]]
+        own = owns[s.index]
+        row["count"] += 1 / proofs
+        row["ms"] += 1e3 * (s.end - s.start) / proofs
+        row["self_ms"] += 1e3 * sum(b - a for a, b in own) / proofs
+        row["idle_ms"] += 1e3 * sum((b - a) - covered(busy, a, b) for a, b in own) / proofs
+    return dict(sorted(table.items(), key=lambda kv: min(
+        s.start for s in spans if names[s.index] == kv[0])))
 
 
-def _timed(table, stack, name, fn):
-    """Wrap ``fn`` to add its EXCLUSIVE time (minus timed callees) to table."""
-
-    def wrapper(*args, **kwargs):
-        _sync()
+def section_cost_us(profiling, repeats: int) -> Dict[str, float]:
+    """Host microseconds of one ``with section(...)`` off and on."""
+    out = {}
+    for on in (False, True):
+        profiling.enable(on)
         t0 = time.perf_counter()
-        stack.append(0.0)
-        try:
-            out = fn(*args, **kwargs)
-            _sync()
-        finally:
-            elapsed = time.perf_counter() - t0
-            table[name] += elapsed - stack.pop()
-            if stack:
-                stack[-1] += elapsed
-        return out
-
-    return wrapper
+        for _ in range(repeats):
+            with profiling.section("probe"):
+                pass
+        out["on" if on else "off"] = 1e6 * (time.perf_counter() - t0) / repeats
+        profiling.enable(False)
+        profiling.drain()
+    return out
 
 
 def main() -> int:
@@ -98,9 +116,8 @@ def main() -> int:
     from zkt_plonk_tpu_torch.circuits.withdraw_instance import build
     from zkt_plonk_tpu_torch.commitment import kzg
     from zkt_plonk_tpu_torch.cs import ConstraintSystem
-    from zkt_plonk_tpu_torch.ops import ntt_mr
     from zkt_plonk_tpu_torch.plonk import ZKTPlonk
-    from zkt_plonk_tpu_torch.utils import arkserde
+    from zkt_plonk_tpu_torch.utils import arkserde, profiling
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -121,16 +138,11 @@ def main() -> int:
     ck, cvk = kzg.setup(inst.ctx, max_degree=4 * bound, tau=987654321, device=dev)
     t0 = time.perf_counter()
     compiled = inst.compile(circuit, ck, cvk)
-    _sync()
+    torch.cuda.synchronize()
     compile_s = time.perf_counter() - t0
     rng = random.Random(42)
     inst.prove(compiled, circuit, rng=rng)  # warm-up: builds the prover's tables
-    prover = inst.prover(compiled)
-    committer = prover.committer
-
-    def prove():
-        return inst.prove(compiled, circuit, rng=rng)
-
+    prover = None
     if args.sharded:
         import socket
 
@@ -141,130 +153,117 @@ def main() -> int:
             port = sock.getsockname()[1]
         os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: loopback only
         parallel.init_distributed("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
-        prover = committer = parallel.ShardedProver(prover, parallel.make_mesh(device=dev))
+        prover = parallel.ShardedProver(inst.prover(compiled), parallel.make_mesh(device=dev))
+        inst.prove(compiled, circuit, rng=rng, prover=prover)  # warm-up of the sharded path
 
-        def prove():
-            return inst.prove(compiled, circuit, rng=rng, prover=prover)
+    cost_us = section_cost_us(profiling, 100_000)
 
-        prove()  # warm-up of the sharded path
-
-    # every NTT: its launches by kernel, inside a profiler range
-    transform = ntt_mr.transform
-    ntt_launches = defaultdict(int)
-    ntt_calls = [0]
-
-    def counted_transform(*a, **kw):
-        before = dict(_cuda.launches)
-        with torch.profiler.record_function("ntt_transform"):
-            out = transform(*a, **kw)
-        for k, v in _cuda.launches.items():
-            ntt_launches[k] += v - before[k]
-        ntt_calls[0] += 1
-        return out
-
-    ntt_mr.transform = counted_transform
-
-    # 1. phase timing
-    phases = defaultdict(float)
-    stack = []
-    originals = {}
-    for name in ("commit_batch", "z_round", "quotient_round", "evaluate", "linearize", "open_batch"):
-        originals[name] = getattr(prover, name)
-        setattr(prover, name, _timed(phases, stack, name, originals[name]))
-    commit_many = committer.commit_many
-    committer.commit_many = _timed(phases, stack, "msm_commits", commit_many)
-    synth = circuit.synthesize
-    circuit.synthesize = _timed(phases, stack, "synthesize", synth)
-    _sync()
-    _cuda.reset_launches()
-    t0 = time.perf_counter()
-    proof = prove()
-    _sync()
-    prove_s = time.perf_counter() - t0
-    launches = dict(_cuda.launches)
-    ntt_per_proof = {"transforms": ntt_calls[0],
-                     "launches": {k: v for k, v in ntt_launches.items() if v}}
-    for name, fn in originals.items():
-        setattr(prover, name, fn)
-    committer.commit_many = commit_many
-    circuit.synthesize = synth
-    phases = dict(phases)
-    phases["host_rest"] = prove_s - sum(phases.values())
-    inst.verify(compiled, proof, pub)
+    # off, on, on, off, ...: the recorder's cost is not confounded with drift
+    order = [(i % 4) in (1, 2) for i in range(2 * PROOFS)]
+    runs = []  # (traced, t0, t1, counters, launches)
+    first_proof = None
+    torch.cuda.synchronize()
+    profiling.drain()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        offset = time.time() - time.perf_counter()
+        for traced in order:
+            c0, w0, l0 = profiling.snapshot(), dict(_cuda.work), dict(_cuda.launches)
+            profiling.enable(traced)
+            t0 = time.perf_counter()
+            proof = inst.prove(compiled, circuit, rng=rng, prover=prover)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            profiling.enable(False)
+            counts = {k: v - c0[k] for k, v in profiling.snapshot().items()}
+            counts.update({k: v - w0[k] for k, v in _cuda.work.items()})
+            launches = {k: v - l0[k] for k, v in _cuda.launches.items() if v > l0[k]}
+            runs.append((traced, t0, t1, counts, launches))
+            if first_proof is None:
+                first_proof = proof
+    spans = profiling.drain()
+    ops = profiling.device_intervals(prof)
+    inst.verify(compiled, first_proof, pub)
     proof_sha256 = hashlib.sha256(arkserde.proof_to_bytes(
-        proof, inst.ctx.curve.fq.modulus, inst.ctx.curve.fr.modulus)).hexdigest()
+        first_proof, inst.ctx.curve.fq.modulus, inst.ctx.curve.fr.modulus)).hexdigest()
 
-    # 2. device time by kernel under the profiler
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    _sync()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        prove()
-        _sync()
-        prof_wall = time.perf_counter() - t0
-    ntt_mr.transform = transform
-    kernels = defaultdict(lambda: [0.0, 0])
-    ntt_span_s = 0.0
-    for evt in prof.key_averages():
-        # device-side events only (kernels, copies); the aten op that
-        # launched a kernel reports the same device time again
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if evt.key.startswith("Activity Buffer"):  # the profiler's own
-            continue
-        if evt.key == "ntt_transform":
-            # the range on the device, from each transform's first kernel to
-            # its last: a span, not a kernel
-            ntt_span_s = evt.self_device_time_total / 1e6
-            continue
-        if evt.self_device_time_total > 0:
-            kernels[evt.key][0] += evt.self_device_time_total / 1e6
-            kernels[evt.key][1] += evt.count
-    busy = sum(v[0] for v in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:20]
-    # the MSM's EC kernels: K4a (bucket accumulation) and K4 (merges, scans)
-    ec_kernels = {}
-    for label, names in EC_KERNELS.items():
-        hits = [v for k, v in kernels.items() if any(n in k for n in names)]
-        ec_kernels[label] = {"seconds": sum(v[0] for v in hits), "calls": sum(v[1] for v in hits)}
+    traced_runs = [r for r in runs if r[0]]
+    n_traced = len(traced_runs)
+    windows = [(t0 + offset, t1 + offset) for _, t0, t1, _, _ in traced_runs]
+    spans = [s._replace(start=s.start + offset, end=s.end + offset) for s in spans]
+    busy = union([(a, b) for _, _, a, b in ops])
+    lo, hi = min(a for a, _ in windows), max(b for _, b in windows)
+    aligned = 2 * sum(1 for _, _, a, b in ops if b > lo and a < hi) >= len(ops)
+    phases = phase_table(spans, n_traced, busy if aligned else ())
+    roots = {name: sum(s.end - s.start for s in spans if s.name == name and s.parent == -1)
+             for name in ("statement", "prove")}
+    selfs = self_seconds(spans)
+    self_share = {name: sum(selfs[s.index] for s in spans if s.name == name and s.parent == -1)
+                  / roots[name] for name in roots if roots[name]}
+    prove_spans = union([(s.start, s.end) for s in spans if s.name == "prove" and s.parent == -1])
+    idle_in_prove_ms = 1e3 * sum((b - a) - covered(busy, a, b) for a, b in prove_spans) / n_traced
+    counters = {k: sum(r[3][k] for r in traced_runs) / n_traced for k in traced_runs[0][3]}
+    per_kernel = defaultdict(float)  # launches a proof, by instance
+    for r in traced_runs:
+        for k, v in r[4].items():
+            per_kernel[k] += v / n_traced
+    by_kernel = defaultdict(lambda: [0.0, 0])
+    for _, name, a, b in ops:
+        by_kernel[name][0] += b - a
+        by_kernel[name][1] += 1
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:20]
+    kernels_ms = {label: 1e3 * sum(v[0] for k, v in by_kernel.items()
+                                   if any(re.search(rf"\b{n}\b", k) for n in names)) / len(runs)
+                  for label, names in KERNELS.items()}
+    wall = {key: [t1 - t0 for traced, t0, t1, _, _ in runs if traced == on]
+            for key, on in (("off", False), ("on", True))}
 
     record = {
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi,
         "config": {"curve": args.curve, "height": args.height, "notes": args.notes,
-                   "table": args.table, "n": bound, "sharded": args.sharded},
+                   "table": args.table, "n": bound, "sharded": args.sharded,
+                   "proofs_off": len(wall["off"]), "proofs_on": len(wall["on"])},
         "compile_s": compile_s,
-        "prove_s": prove_s,
         "proof_sha256": proof_sha256,
-        "phases_s": phases,
-        "launches_per_proof": launches,
-        "ntt_per_proof": ntt_per_proof,
-        "ntt_device_span_s": ntt_span_s,
-        "profiled_prove_wall_s": prof_wall,
-        "device_busy_s": busy,
-        "device_busy_share": busy / prof_wall if prof_wall else None,
-        "ec_kernels": ec_kernels,
-        "top_device_ops": [
-            {"name": k, "seconds": v[0], "calls": v[1], "share_of_busy": v[0] / busy}
-            for k, v in top
-        ],
+        "section_us": cost_us,
+        "proof_wall_s": wall,
+        "spans_per_proof": len(spans) / n_traced,
+        "phases_ms_per_proof": phases,
+        "root_self_share": self_share,
+        "counters_per_proof": counters,
+        "launches_per_proof": dict(per_kernel),
+        "aligned": aligned,
+        "device_busy_ms_per_proof": 1e3 * sum(b - a for a, b in busy) / len(runs),
+        "device_idle_in_prove_ms_per_proof": idle_in_prove_ms if aligned else None,
+        "idle_gaps_s": idle_gaps(busy, spans, windows) if aligned else [],
+        "kernels_ms_per_proof": kernels_ms,
+        "top_device_ops": [{"name": k, "seconds": v[0], "calls": v[1]} for k, v in top],
     }
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     print(f"card: {smi}")
-    print(f"n={bound} sharded={args.sharded} compile_s={compile_s:.3f} prove_s={prove_s:.3f} "
+    print(f"{args.curve} n={bound} sharded={args.sharded} compile_s={compile_s:.3f} "
           f"proof_sha256={proof_sha256}")
-    print(f"kernel launches in one proof: {launches}")
-    print(f"NTTs in one proof: {ntt_per_proof}")
-    for k, v in sorted(phases.items(), key=lambda kv: -kv[1]):
-        print(f"  phase {k:16s} {v:.4f} s")
-    print(f"profiled prove wall {prof_wall:.3f} s, device busy {busy:.3f} s "
-          f"({100 * busy / prof_wall:.1f}%), NTT device span {ntt_span_s * 1e3:.3f} ms")
-    for label, v in ec_kernels.items():
-        print(f"  {label}: {v['seconds'] * 1e3:.2f} ms device in {v['calls']} calls")
+    print(f"section: off {cost_us['off']:.3f} us, on {cost_us['on']:.3f} us; "
+          f"{len(spans) / n_traced:.1f} spans a proof")
+    print(f"proof wall: recorder off {mean(wall['off']):.4f} s {wall['off']}, "
+          f"on {mean(wall['on']):.4f} s {wall['on']}")
+    print(f"self share: {self_share}")
+    print(f"counters a proof: {counters}")
+    print(f"launches a proof: {sum(per_kernel.values()):.1f} {dict(per_kernel)}")
+    busy_ms = record["device_busy_ms_per_proof"]
+    print(f"device busy {busy_ms:.3f} ms a proof, idle inside prove {idle_in_prove_ms:.3f} ms "
+          f"a proof (aligned: {aligned}); kernels {kernels_ms}")
+    print(f"{'path':44s} {'count':>6s} {'ms':>10s} {'self ms':>10s} {'idle ms':>10s}")
+    for name, row in phases.items():
+        print(f"{name:44s} {row['count']:6.1f} {row['ms']:10.3f} {row['self_ms']:10.3f} "
+              f"{row['idle_ms']:10.3f}")
+    for name, seconds in record["idle_gaps_s"]:
+        print(f"  idle gap {1e3 * seconds:9.3f} ms  {name}")
     for k, v in top:
-        print(f"  {v[0] * 1e3:10.2f} ms {v[1]:7d} calls  {k[:90]}")
+        print(f"  {v[0] * 1e3:10.2f} ms {v[1]:7d} ops  {k[:90]}")
     if args.sharded:
         import torch.distributed as dist
 
