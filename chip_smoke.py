@@ -50,7 +50,13 @@ Phases, one line each:
                 threads) on one witness with 3 proof seeds, each proof
                 byte-equal to the single-device proof of its seed, its
                 proofs/s against the same 3 proofs one after another
-                (sequential, batch, batch, sequential);
+                (sequential, batch, batch, sequential); the staging
+                (``[staging]``): 16-bit limbs copied from pinned memory and
+                widened on the card equal the int32 limbs the pageable path
+                copied, for columns of 2^18 rows queued back to back, with
+                each path's host-to-device copy time; one more proof under
+                the profiler with every staged byte pinned, its host-to-
+                device ms and GB/s, and on BN254 its fixed sha256;
   6. poseidon — device Poseidon (width 4, every add and multiply a K1
                 launch) on one level of a 2^17-leaf Merkle tree (2^16 pair
                 rows) plus a short row, and on the short row alone, bit for
@@ -121,6 +127,9 @@ MATRIX_KZG_SHA256 = {
     "bls12_381": "b2b043dfe1ab8c68d92d5b8e87142800d2af78ed6696914e381937a51481bf73",
     "bls12_377": "87afcb2106fb26cd96b1864c780e6a6294ba1dcf6073506f0fb6465a4b8fa384",
 }
+# the second BN254 withdraw proof from random.Random(42) at HEIGHT=48, NOTES=3,
+# TABLE=1024 (Ethereum transcript), as tools/profile_withdraw.py proves it
+WITHDRAW_BN254_SHA256 = "fb2ab44927b6180f6836c570f7c5271f430a83477acd23855d935592553501bb"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 
@@ -847,7 +856,8 @@ def withdraw(dev, height=48, notes=3, table_size=1024, curve="bn254"):
     compiled = inst.compile(circuit, ck, cvk)
     compile_s = clock(t0)
     t0 = time.perf_counter()
-    inst.prove(compiled, circuit, rng=random.Random(42))
+    rng42 = random.Random(42)
+    inst.prove(compiled, circuit, rng=rng42)
     cold_s = clock(t0)
     before = dict(_cuda.launches)
     t0 = time.perf_counter()
@@ -863,6 +873,7 @@ def withdraw(dev, height=48, notes=3, table_size=1024, curve="bn254"):
                    warm_s, single_launches)
     launches = dict(_cuda.launches)
     ntt_mr.transform = inner
+    staged_proof(phase, dev, inst, compiled, circuit, rng42)
     try:
         inst.verify(compiled, proof, [(pub_inputs[0] + 1) % inst.p] + pub_inputs[1:])
     except (VerificationError, AssertionError):
@@ -885,6 +896,82 @@ def withdraw(dev, height=48, notes=3, table_size=1024, curve="bn254"):
 
 WARM_SEED = 43
 BATCH_ROWS = 3
+
+
+def htod_seconds(ops, copies: int, source: str = ""):
+    """Device seconds of the host-to-device copies among a profiler run's
+    ``profiling.device_intervals``, those from ``source`` memory
+    ("Pageable", "Pinned") or all; None where the trace holds fewer than
+    the ``copies`` made (a later profiler run of one process can come back
+    without some of them)."""
+    got = [b - a for cat, name, a, b in ops
+           if cat == "gpu_memcpy" and "HtoD" in name and source in name]
+    return sum(got) if len(got) >= copies else None
+
+
+def ms_and_rate(nbytes: int, seconds):
+    """(ms, GB/s) of a copy time, or (None, None) where it is unknown."""
+    if seconds is None:
+        return None, None
+    return round(1e3 * seconds, 3), round(nbytes / seconds / 1e9, 2)
+
+
+def staging(phase, dev, spec, rows=1 << 18, batches=4, k=3):
+    """``batches`` uploads of k columns of ``rows`` ints queued back to back
+    with no sync between them, each equal on the card to the int32 limbs
+    the pageable path copied; each path's host-to-device copy time and rate."""
+    from zkt_plonk_tpu_torch.fields import device as fd
+    from zkt_plonk_tpu_torch.fields.limbs import ints_to_array
+
+    rng = random.Random(7)
+    p, L = spec.modulus, spec.n_limbs
+    trap = sum(0xFFFF << (16 * i) for i in range(L - 1))  # every limb but the top 0xffff
+    edge = [0, 1, p - 1, trap % p]
+    blocks = [[edge + [rng.getrandbits(p.bit_length() - 1) for _ in range(rows - len(edge))]
+               for _ in range(k)] for _ in range(batches)]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        old = [torch.from_numpy(np.stack([ints_to_array(c, L) for c in cols]).astype(np.int32))
+               .to(dev) for cols in blocks]
+        torch.cuda.synchronize()
+        new = [fd.upload(L, cols, dev) for cols in blocks]
+        torch.cuda.synchronize()
+    ops = profiling.device_intervals(prof)
+    equal = all(torch.equal(a, b) for a, b in zip(old, new))
+    nbytes = batches * k * rows * L
+    pageable = ms_and_rate(4 * nbytes, htod_seconds(ops, batches, "Pageable"))
+    pinned = ms_and_rate(2 * nbytes, htod_seconds(ops, batches, "Pinned"))
+    say("staging", path=phase, shape=f"{batches}x({k},{rows},{L})", equal=equal,
+        pageable_int32_ms=pageable[0], pageable_gb_per_s=pageable[1],
+        pinned_uint16_ms=pinned[0], pinned_gb_per_s=pinned[1])
+    if not equal:
+        raise AssertionError(f"{phase}: the staged limbs differ from the pageable path's")
+
+
+def staged_proof(phase, dev, inst, compiled, circuit, rng):
+    """One more warm proof, under the profiler: every staged byte copied
+    from pinned memory, its host-to-device ms and rate, and on BN254 the
+    fixed sha256 of the second proof of ``random.Random(42)``."""
+    staging(phase, dev, inst.ctx.fr_spec)
+    before = profiling.snapshot()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        proof = inst.prove(compiled, circuit, rng=rng)
+        torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in profiling.snapshot().items()}
+    htod = ms_and_rate(counts["h2d_bytes"],
+                       htod_seconds(profiling.device_intervals(prof), counts["h2d_copies"]))
+    digest = hashlib.sha256(proof_bytes(inst, proof)).hexdigest()
+    say("staging", path=phase, proof_sha256=digest, h2d_bytes=counts["h2d_bytes"],
+        h2d_pinned_bytes=counts["h2d_pinned_bytes"], h2d_copies=counts["h2d_copies"],
+        htod_ms=htod[0], htod_gb_per_s=htod[1],
+        pinned_host=json.dumps({k: v for k, v in torch.cuda.host_memory_stats().items()
+                                if "bytes" in k}))
+    if counts["h2d_pinned_bytes"] != counts["h2d_bytes"]:
+        raise AssertionError(f"{phase}: {counts['h2d_pinned_bytes']} of {counts['h2d_bytes']} "
+                             "staged bytes copied from pinned memory")
+    if phase == "withdraw" and digest != WITHDRAW_BN254_SHA256:
+        raise AssertionError(f"withdraw: the second proof of random.Random(42) has sha256 {digest}")
 
 
 def proof_bytes(inst, proof) -> bytes:

@@ -5,17 +5,20 @@ Every function takes and returns ``torch.int32`` tensors of canonical
 its inputs live on.  On the card ``mul``/``add``/``sub`` launch kernel K1
 and ``pow_const``/``inv`` kernel K2 (``fields/cuda.py``); on the CPU the
 same wrappers run their plain PyTorch versions.  Constructors take
-``device=`` (default ``"cuda"``).
+``device=`` (default ``"cuda"``); ``upload`` stages host ints.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
+import numpy as np
 import torch
 
 from .. import _cuda
 from ..utils import profiling
 from . import cuda as fc
-from .limbs import FieldSpec, int_to_limbs
+from .limbs import LIMB_BITS, FieldSpec
 
 I32 = torch.int32
 
@@ -46,11 +49,35 @@ def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return torch.where(cond.unsqueeze(-1), a, b)
 
 
+def upload(n_limbs: int, cols: Sequence[Sequence[int]], device) -> torch.Tensor:
+    """k columns of equally many host ints, each below 2^(16 n_limbs) ->
+    (k, rows, n_limbs) int32 limbs on ``device``: one copy.
+
+    The limbs cross as the 16 bits they hold (``v.to_bytes`` is already the
+    little-endian limbs), written once into a host uint16 tensor and widened
+    to int32 on the device.  For a card the host tensor is pinned, from
+    torch's caching host allocator, and the copy is an asynchronous DMA on
+    the current stream; the allocator keeps the block until that copy has
+    completed, so a block is never rewritten under a copy in flight.
+    Counted in the recorder's ``h2d_copies``, ``h2d_bytes`` (the bytes
+    copied) and ``h2d_pinned_bytes`` (those copied from pinned memory)."""
+    dev = torch.device(device)
+    pinned = dev.type == "cuda"
+    rows = len(cols[0])
+    host = torch.empty((len(cols), rows, n_limbs), dtype=torch.uint16, pin_memory=pinned)
+    limbs = host.numpy()
+    nbytes = n_limbs * LIMB_BITS // 8
+    for i, col in enumerate(cols):
+        raw = b"".join(v.to_bytes(nbytes, "little") for v in col)
+        limbs[i] = np.frombuffer(raw, dtype="<u2").reshape(rows, n_limbs)
+    profiling.count(h2d_copies=1, h2d_bytes=host.nbytes,
+                    h2d_pinned_bytes=host.nbytes if pinned else 0)
+    return host.to(dev, non_blocking=True).to(I32)
+
+
 def constant(spec: FieldSpec, value: int, shape=(), device="cuda") -> torch.Tensor:
     dev = _cuda.require_cuda(device)
-    host = int_to_limbs(value % spec.modulus, spec.n_limbs).astype("int32")
-    profiling.count(h2d_copies=1, h2d_bytes=host.nbytes)
-    return torch.tensor(host, device=dev).expand(*shape, spec.n_limbs)
+    return upload(spec.n_limbs, [[value % spec.modulus]], dev)[0, 0].expand(*shape, spec.n_limbs)
 
 
 def one(spec: FieldSpec, shape=(), device="cuda") -> torch.Tensor:

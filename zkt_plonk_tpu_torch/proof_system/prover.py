@@ -27,19 +27,16 @@ from __future__ import annotations
 
 from typing import List
 
-import numpy as np
 import torch
 
 from ..cs.composer import K1, K2, ProvingComposer
 from ..cs.lookup import LookupTable, combine_split
 from ..fields import device as fd
-from ..fields.limbs import ints_to_array
 from ..ops import ntt
 from ..utils.domain import make_domain
 from ..utils.profiling import section, waiting
 from .keys import ExtendedProverKey, ProverKey, VerifierKey
 from .proof import Proof, ProofEvaluations
-from .setup import to_device
 
 PK_NAMES = ("sigma1", "sigma2", "sigma3", "q_lookup", "q_table",
             "q_m", "q_l", "q_r", "q_o", "q_c")
@@ -213,26 +210,23 @@ class RoundSchedule:
         return self.stack_rows([ints])[0]
 
     def stack_rows(self, cols) -> torch.Tensor:
+        """This prover's rows of k columns of n host ints -> (k, rows, L)."""
         lo, hi = self.row_block
         with section("stage"):
-            return to_device(
-                np.stack([ints_to_array(col[lo:hi], self.spec.n_limbs) for col in cols]),
-                self.device)
+            return fd.upload(self.spec.n_limbs, [col[lo:hi] for col in cols], self.device)
 
     def vec(self, vals: List[int]) -> torch.Tensor:
         """Host scalars -> (k, L) int32 tensor on the device."""
         with section("stage"):
-            return self._vec(vals)
-
-    def _vec(self, vals: List[int]) -> torch.Tensor:
-        return to_device(ints_to_array([v % self.p for v in vals], self.spec.n_limbs), self.device)
+            return fd.upload(self.spec.n_limbs, [[v % self.p for v in vals]], self.device)[0]
 
     def blinders(self, rng, counts: List[int]) -> torch.Tensor:
+        """(len(counts), 4, L): row i holds counts[i] random scalars, then zeros."""
         with section("stage"):
             rows = []
             for k in counts:
                 rows.append([rng.randrange(self.p) for _ in range(k)] + [0] * (4 - k))
-            return torch.stack([self._vec(r) for r in rows])
+            return fd.upload(self.spec.n_limbs, rows, self.device)
 
     # ------------------------------------------------------------------
     # host orchestration

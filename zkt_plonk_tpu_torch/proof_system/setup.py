@@ -12,27 +12,18 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..commitment import scheme as scheme_mod
 from ..cs.composer import SetupComposer
 from ..cs.lookup import LookupTable
-from ..fields.limbs import array_to_ints, ints_to_array
+from ..fields.device import upload
+from ..fields.limbs import array_to_ints
 from ..ops import ntt, ntt_host
-from ..utils import profiling
 from ..utils.domain import Domain, make_domain
 from .keys import POLY_ORDER, ExtendedProverKey, ProverKey, VerifierKey
 
 MIN_CIRCUIT_SIZE = 8  # quotient split needs 3n+6 <= 4n
-
-
-def to_device(arr: np.ndarray, device) -> torch.Tensor:
-    """Host uint32 limb array -> int32 tensor on ``device``, counted in the
-    recorder's ``h2d_copies``/``h2d_bytes``."""
-    arr = np.ascontiguousarray(arr).astype(np.int32)
-    profiling.count(h2d_copies=1, h2d_bytes=arr.nbytes)
-    return torch.from_numpy(arr).to(device)
 
 
 def setup(
@@ -70,19 +61,13 @@ def setup(
         q_table,
     ]
     if n <= ntt_host.HOST_NTT_MAX:
-        polys_arr = to_device(
-            np.stack(
-                [
-                    ints_to_array(ntt_host.ifft_ints(col, domain.group_gen, p), spec.n_limbs)
-                    for col in eval_columns
-                ]
-            ),
+        polys_arr = upload(
+            spec.n_limbs,
+            [ntt_host.ifft_ints(col, domain.group_gen, p) for col in eval_columns],
             dev,
         )
     else:
-        evals_arr = to_device(
-            np.stack([ints_to_array(col, spec.n_limbs) for col in eval_columns]), dev
-        )  # (10, n, L)
+        evals_arr = upload(spec.n_limbs, eval_columns, dev)  # (10, n, L)
         polys_arr = ntt.ifft(spec, domain.plan(dev), evals_arr)
         del evals_arr
 
@@ -149,12 +134,10 @@ def extend_prover_key(
     i4 = pow(domain4.group_gen, n, p)  # primitive 4th root of unity
     zh_vals = [(g_n * pow(i4, j, p) - 1) % p for j in range(4)]
     zh_inv_vals = [pow(v, -1, p) for v in zh_vals]
-    zh_coset_inv = ints_to_array(zh_inv_vals, spec.n_limbs)  # (4, L)
 
     roots_host = domain.elements()
     gj = [domain.coset_gen * pow(domain4.group_gen, j, p) % p for j in range(4)]
     x_coset_host = [[gjv * r % p for r in roots_host] for gjv in gj]
-    x_coset = np.stack([ints_to_array(row, spec.n_limbs) for row in x_coset_host])  # (4, n, L)
 
     # L1 on the coset: zh(x) / (n (x - 1))
     l1_denoms = [n * (x - 1) % p for row in x_coset_host for x in row]
@@ -162,15 +145,12 @@ def extend_prover_key(
 
     l1_inv = batch_inverse_ints(l1_denoms, p)
     l1_vals = [zh_vals[i // n] * l1_inv[i] % p for i in range(4 * n)]
-    l1_coset = ints_to_array(l1_vals, spec.n_limbs).reshape(4, n, spec.n_limbs)
 
     if n <= ntt_host.HOST_NTT_MAX:
         coeff_ints = [array_to_ints(stacked[i].cpu().numpy()) for i in range(10)]
-        rows = []
-        for ci in coeff_ints:
-            per_j = [ntt_host.coset_fft_ints(ci, gj_, domain.group_gen, p) for gj_ in gj]
-            rows.append(np.stack([ints_to_array(ev, spec.n_limbs) for ev in per_j]))
-        coset_tables = to_device(np.stack(rows), device)  # (10, 4, n, L)
+        evals = [ntt_host.coset_fft_ints(ci, gj_, domain.group_gen, p)
+                 for ci in coeff_ints for gj_ in gj]
+        coset_tables = upload(spec.n_limbs, evals, device).reshape(10, 4, n, spec.n_limbs)
     else:
         coset_tables = ntt.coset4_fft(
             spec, domain.plan(device), domain.quarter_plan(device), stacked
@@ -180,12 +160,10 @@ def extend_prover_key(
     return ExtendedProverKey(
         n=n,
         coset={name: coset_tables[i] for i, name in enumerate(POLY_ORDER)},
-        x_coset=to_device(x_coset, device),
-        zh_coset_inv=to_device(zh_coset_inv, device),
-        l1_coset=to_device(l1_coset, device),
-        sigma_evals=to_device(
-            np.stack([ints_to_array(s, spec.n_limbs) for s in sigma_evals]), device
-        ),
-        roots=to_device(ints_to_array(roots_host, spec.n_limbs), device),
+        x_coset=upload(spec.n_limbs, x_coset_host, device),  # (4, n, L)
+        zh_coset_inv=upload(spec.n_limbs, [zh_inv_vals], device)[0],  # (4, L)
+        l1_coset=upload(spec.n_limbs, [l1_vals], device).reshape(4, n, spec.n_limbs),
+        sigma_evals=upload(spec.n_limbs, sigma_evals, device),
+        roots=upload(spec.n_limbs, [roots_host], device)[0],
         q_lookup_evals_host=list(q_lookup_evals),
     )

@@ -24,7 +24,12 @@ clock.  From the recorded proofs it reports, per proof:
   none of its child spans covers) and the milliseconds of its self time in
   which the card ran nothing; the self shares of ``prove`` and
   ``statement``;
-* the counters (``profiling.counters``, ``_cuda.work``) and the launches;
+* the counters (``profiling.counters``, ``_cuda.work``) and the launches,
+  the share of the staged bytes copied from pinned memory
+  (``h2d_pinned_bytes / h2d_bytes``), and the host-to-device copies' device
+  ms and effective GB/s (``h2d_bytes`` over their time in the trace);
+* the pinned host memory that torch's caching host allocator holds after
+  set-up and after the proofs (``torch.cuda.host_memory_stats``);
 * the card's busy time (the union of its kernel, memcpy and memset
   intervals), its idle time inside the ``prove`` spans, and the longest
   idle gaps of the recorded proofs, each named by the path of the
@@ -99,6 +104,11 @@ def section_cost_us(profiling, repeats: int) -> Dict[str, float]:
     return out
 
 
+def host_memory() -> Dict[str, int]:
+    """The byte counts of torch's caching host (pinned) allocator."""
+    return {k: v for k, v in torch.cuda.host_memory_stats().items() if "bytes" in k}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--curve", default="bn254", choices=["bn254", "bls12_381"])
@@ -140,6 +150,7 @@ def main() -> int:
     compiled = inst.compile(circuit, ck, cvk)
     torch.cuda.synchronize()
     compile_s = time.perf_counter() - t0
+    pinned = {"after_setup": host_memory()}
     rng = random.Random(42)
     inst.prove(compiled, circuit, rng=rng)  # warm-up: builds the prover's tables
     prover = None
@@ -182,6 +193,7 @@ def main() -> int:
                 first_proof = proof
     spans = profiling.drain()
     ops = profiling.device_intervals(prof)
+    pinned["after_proofs"] = host_memory()
     inst.verify(compiled, first_proof, pub)
     proof_sha256 = hashlib.sha256(arkserde.proof_to_bytes(
         first_proof, inst.ctx.curve.fq.modulus, inst.ctx.curve.fr.modulus)).hexdigest()
@@ -216,6 +228,10 @@ def main() -> int:
                   for label, names in KERNELS.items()}
     wall = {key: [t1 - t0 for traced, t0, t1, _, _ in runs if traced == on]
             for key, on in (("off", False), ("on", True))}
+    h2d_s = sum(b - a for cat, name, a, b in ops if cat == "gpu_memcpy" and "HtoD" in name)
+    h2d = {"ms_per_proof": 1e3 * h2d_s / len(runs),
+           "gb_per_s": counters["h2d_bytes"] * len(runs) / h2d_s / 1e9,
+           "pinned_share": counters["h2d_pinned_bytes"] / counters["h2d_bytes"]}
 
     record = {
         "device": torch.cuda.get_device_name(0),
@@ -231,6 +247,8 @@ def main() -> int:
         "phases_ms_per_proof": phases,
         "root_self_share": self_share,
         "counters_per_proof": counters,
+        "h2d": h2d,
+        "pinned_host_bytes": pinned,
         "launches_per_proof": dict(per_kernel),
         "aligned": aligned,
         "device_busy_ms_per_proof": 1e3 * sum(b - a for a, b in busy) / len(runs),
@@ -252,6 +270,8 @@ def main() -> int:
           f"on {mean(wall['on']):.4f} s {wall['on']}")
     print(f"self share: {self_share}")
     print(f"counters a proof: {counters}")
+    print(f"h2d: {h2d['ms_per_proof']:.3f} ms a proof on the card, {h2d['gb_per_s']:.2f} GB/s, "
+          f"pinned share {h2d['pinned_share']}; pinned host memory {pinned}")
     print(f"launches a proof: {sum(per_kernel.values()):.1f} {dict(per_kernel)}")
     busy_ms = record["device_busy_ms_per_proof"]
     print(f"device busy {busy_ms:.3f} ms a proof, idle inside prove {idle_in_prove_ms:.3f} ms "

@@ -18,7 +18,10 @@ so the rows' proofs never share one.
 
 ``counters`` are plain integers that count always, whether recording is on
 or not, and never read the card: ``h2d_copies`` and ``h2d_bytes``, the
-host arrays handed to the prover's device (a copy on the card);
+host limbs handed to the prover's device (``fields.device.upload``: a
+copy on the card, of 2 bytes a limb), and ``h2d_pinned_bytes``, those of
+the bytes copied from pinned memory (all of them on a card, none on the
+CPU);
 ``host_waits``, the blocking reads of the device on the prove path (one
 per ``wait`` span, through ``waiting``).  Kernel work is counted beside
 the launches, in ``_cuda.work``.
@@ -53,7 +56,8 @@ class Span(NamedTuple):
     thread: int  # threading.get_ident()
 
 
-counters: Dict[str, int] = {"h2d_copies": 0, "h2d_bytes": 0, "host_waits": 0}
+counters: Dict[str, int] = {"h2d_copies": 0, "h2d_bytes": 0, "h2d_pinned_bytes": 0,
+                            "host_waits": 0}
 
 _on = False
 _lock = threading.Lock()
