@@ -8,7 +8,8 @@ Phases, one line each:
   1. device   — the card's name, and nvidia-smi's name and power limit;
   2. build    — nvcc builds of the five kernel sources in csrc/ (in
                 parallel), with ptxas's registers and spills for every
-                kernel instance and each kernel's SASS instruction mix;
+                kernel instance (a K4a instance that spills fails) and
+                each kernel's SASS instruction mix;
                 each EC instance's resident blocks per SM and registers
                 from the card's occupancy call, and K4a's against the table
                 of ops/msm.py that its G rule reads (a mismatch fails);
@@ -18,8 +19,10 @@ Phases, one line each:
                 call (CUDA events around calls queued back to back), the
                 plain version's time and the bound: K1 on BN254's Fr and
                 Fq, BLS12-381's Fr and (L = 24) BLS12-381's Fq; K2 lazy on
-                BN254's Fr (one element and 2^12, e = p - 2 and 5) and
-                strict on BLS12-381's Fr (e = r - 2); K3 lazy on BN254's Fr
+                BN254's Fr (one element and 2^12, e = p - 2 and 5), strict
+                on BLS12-381's Fr (e = r - 2) and lazy at L = 24 on
+                BLS12-381's and BLS12-377's Fq (e = q - 2, the inversion of
+                a key's Z = 1 copy); K3 lazy on BN254's Fr
                 and strict on BLS12-381's Fr: every fused pass of the
                 (10, 2^18) iNTT and the (36, 2^18) forward transform
                 (strict: the words between passes bit for bit), whole
@@ -28,13 +31,13 @@ Phases, one line each:
                 instance and nothing else; K4 on 2^16 pairs of BN254,
                 BLS12-381 and BLS12-377 points (L = 16 and 24; 3b = 9, 12,
                 3) with identity, doubling and inverse pairs; K4a (the
-                MSM's bucket accumulation) at n = 2^18 + 4 on BN254 and
-                BLS12-381 with B = 3 scalar vectors, including 0, 1,
-                r - 1, negative-zero digits and runs of one digit, and its
-                time at the prover's batches B = 1, 2, 3, 6; on BN254 its
-                affine instance too, on the Z = 1 copy (ec.normalize) of
-                the same points scaled to Z != 1, with both bounds (the
-                work its digits need, and every step a complete add);
+                MSM's bucket accumulation, L = 16 on BN254, L = 24 on
+                BLS12-381 and BLS12-377) at n = 2^18 + 4 with B = 3 scalar
+                vectors, including 0, 1, r - 1, negative-zero digits and
+                runs of one digit, on the Z = 1 copy (ec.normalize) of
+                points scaled to Z != 1, and its time at the prover's
+                batches B = 1, 2, 3, 6 against the bound of the work its
+                digits need;
   4. golden   — the TinyCircuit proof on the card: 802 bytes, fixed sha256;
   5. withdraw — the withdraw circuit at HEIGHT=48, NOTES=3, TABLE=1024
                 (n = 2^18) on BN254: SRS setup, compile, cold and warm
@@ -42,9 +45,7 @@ Phases, one line each:
                 on a world-size-1 NCCL mesh (cold, then warm; the same
                 bytes; it verifies), a tampered public input that must
                 raise, the launch count of every kernel instance over this
-                main path (K4a's affine instance on BN254, never its
-                projective one: the commits run on the key's Z = 1 copy),
-                and the launches inside each of its NTTs (D of
+                main path, and the launches inside each of its NTTs (D of
                 K3, nothing else); then BatchProver with 3 rows sharing the
                 card (a size-1 NCCL group and a CUDA stream each, rows in
                 threads) on one witness with 3 proof seeds, each proof
@@ -74,6 +75,7 @@ Phases, one line each:
                 Poseidon constants generated for BLS12-381's Fr, SRS of
                 2^20 + 1 points at L = 24, K2 and K3 in their strict mode
                 (the launches inside each NTT: D of ntt_col_pass/strict),
+                K2 at L = 24 (the key's Z = 1 copy) and K4a at L = 24,
                 and one ShardedProver proof at D = 1, byte-equal;
   9. matrix   — IPA commits on the card against the plain versions on the
                 CPU (m = 2^12 on BN254, 2^10 on BLS12-381) and against the
@@ -82,7 +84,8 @@ Phases, one line each:
                 tests/test_e2e.py:101-161 (IPA on BN254, BLS12-381 and
                 BLS12-377; KZG on both BLS12 curves): each proves on the
                 card and on the CPU with equal fields, verifies, and fails
-                its tamper probes; the KZG proofs' bytes have fixed sha256;
+                its tamper probes; the KZG proofs' bytes have fixed sha256,
+                and their keys' Z = 1 copies launch K2 at L = 24;
  10. sharded_d2 — two processes on the one card over gloo, every exchange
                 staged through host memory (NCCL refuses two ranks on one
                 GPU): a chain circuit at n = 2^11 proved by ShardedProver
@@ -113,8 +116,7 @@ import torch
 
 # the bounds' peak rates and operation counts (H100 SXM), and K4a's bounds
 from zkt_plonk_tpu_torch.tools.bounds import (
-    EC_ADD_OPS, EC_ADD_OPS_24, MODMUL_OPS, MODMUL_OPS_24, REDUCE_OPS, affine_bound, bound_ms,
-    projective_bound, step_counts,
+    EC_ADD_OPS, EC_ADD_OPS_24, MODMUL_OPS, MODMUL_OPS_24, accumulate_bound, bound_ms, step_counts,
 )
 from zkt_plonk_tpu_torch.utils import profiling
 
@@ -281,20 +283,29 @@ def parity_fp_binop(records, dev):
         )
 
 
-SQUARE_OPS = 2 * 36 + REDUCE_OPS  # a squaring: 36 distinct word products
+def square_ops(nw: int) -> int:
+    """32-bit multiplies of a Montgomery squaring at nw words: the
+    nw (nw + 1) / 2 distinct word products and a reduction."""
+    return 2 * (nw * (nw + 1) // 2) + nw + 2 * nw * nw
 
 
 def parity_fp_pow_chain(records, dev):
-    """K2 lazy on BN254's Fr (e = p - 2 and 5) and strict on BLS12-381's Fr
-    (e = r - 2, the prover's inversion), at one element and 2^12."""
+    """K2 lazy on BN254's Fr (e = p - 2 and 5), strict on BLS12-381's Fr
+    (e = r - 2, the prover's inversion) and lazy at L = 24 on BLS12-381's
+    and BLS12-377's Fq (e = q - 2, the inversion of a key's Z column), at
+    one element and 2^12."""
     from zkt_plonk_tpu_torch import _cuda
-    from zkt_plonk_tpu_torch.fields import BLS12_381_FR, BN254_FR, make_spec
+    from zkt_plonk_tpu_torch.fields import BLS12_381_FQ, BLS12_381_FR, BN254_FR, make_spec
+    from zkt_plonk_tpu_torch.fields.params import BLS12_377_FQ
     from zkt_plonk_tpu_torch.fields import cuda as fc
     from zkt_plonk_tpu_torch.fields.limbs import array_to_ints
 
-    for params, key in ((BN254_FR, "fp_pow_chain"), (BLS12_381_FR, "fp_pow_chain/strict")):
+    for params, key in ((BN254_FR, "fp_pow_chain"), (BLS12_381_FR, "fp_pow_chain/strict"),
+                        (BLS12_381_FQ, "fp_pow_chain/L24"), (BLS12_377_FQ, "fp_pow_chain/L24")):
         spec = make_spec(params)
         p = spec.modulus
+        L = spec.n_limbs
+        modmul_ops = MODMUL_OPS_24 if L == 24 else MODMUL_OPS
         A = random_limbs(spec, 1 << 12, np.random.default_rng(5))
         A[:7] = 0
         A[7, :] = 0
@@ -308,7 +319,7 @@ def parity_fp_pow_chain(records, dev):
             sched = fc.window_schedule(e)
             squarings = sum(s for s, _ in sched.steps) + sched.tail + (sched.ntab > 1)
             multiplies = sched.products() - squarings
-            ops = squarings * SQUARE_OPS + multiplies * MODMUL_OPS
+            ops = squarings * square_ops(L // 2) + multiplies * modmul_ops
             for n in (1, 1 << 12):
                 # the prover's one element: a random one (row 9)
                 rows = A[9:10] if n == 1 else A
@@ -328,7 +339,7 @@ def parity_fp_pow_chain(records, dev):
                     raise AssertionError(f"{key} e={e} n={n} disagrees (max_abs_err {err})")
                 k_ms = time_cuda(lambda: fc.pow_chain(spec, a, e))
                 p_ms = time_cuda(lambda: fc.pow_chain_plain(spec, a, e), reps=1, warmup=0)
-                b_ms, b_by = bound_ms(2 * ELEM_BYTES * n, n * ops)
+                b_ms, b_by = bound_ms(2 * 4 * L * n, n * ops)
                 label = "p-2" if e == p - 2 else str(e)
                 say("parity", kernel=key, shape=f"{n}x{params.name},e={label}", window=sched.window,
                     products=sched.products(), squarings=squarings, ms=k_ms, plain_ms=p_ms,
@@ -340,6 +351,8 @@ def parity_fp_pow_chain(records, dev):
             big, small = fc.window_schedule(p - 2).products(), fc.window_schedule(5).products()
             say("time", kernel=key, shape="1xFr", us_per_product=(
                 (timed[(p - 2, 1)][0] - timed[(5, 1)][0]) * 1e3 / (big - small)))
+        if params is BLS12_377_FQ:
+            continue  # the record: BLS12-381's
         # the record: the prover's shape, one element, e = p - 2
         k_ms, p_ms, b_ms, b_by = timed[(p - 2, 1)]
         records[key] = dict(
@@ -603,10 +616,16 @@ def _host_row(ck, pts_host, digits, g, bw, G, K):
     return [None if r is None else (int(r[0]), int(r[1])) for r in rows]
 
 
-def parity_ec_bucket_accumulate(records, dev, curve="bn254", log_n=18):
+def parity_ec_bucket_accumulate(records, dev, curve="bn254", log_n=18, record=True):
     """K4a at n = 2^18 + 4 on one curve's points: ``ec_bucket_accumulate``
-    on BN254 (L = 16), ``ec_bucket_accumulate/L24`` on BLS12-381."""
+    on BN254 (L = 16), ``ec_bucket_accumulate/L24`` on the BLS12 curves.
+    The points are the Z = 1 copy (``ec.normalize``, as a key's
+    ``msm_points`` builds it) of the SRS points scaled by random factors to
+    Z != 1: the copy equal to the points, the buckets at B = 3 equal to the
+    plain version's, four rows against host adds; then the times at the
+    prover's other batches.  ``record`` keeps the instance's record."""
     from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.fields import device as fd
     from zkt_plonk_tpu_torch.fields.limbs import ints_to_array
     from zkt_plonk_tpu_torch.ops import ec, msm
 
@@ -631,6 +650,7 @@ def parity_ec_bucket_accumulate(records, dev, curve="bn254", log_n=18):
     # parity at B = 3 (the prover's middle batch), n not a multiple of G
     B = 3
     G = msm.group_count(n, c, B, msm.num_windows(fr_bits + 1, c), L)
+    shape = f"n=2^{log_n}+4,B={B},c={c},G={G}"
     S_np = scalars(B)
     edge = ints_to_array([0, 1, r - 1, 0xFFFF, (1 << 253) - 1, (r - 1) // 2], 16)
     S_np[0, : len(edge)] = edge
@@ -644,86 +664,18 @@ def parity_ec_bucket_accumulate(records, dev, curve="bn254", log_n=18):
         run = 2 if g < 12 else 5
         S_np[2, steps] = S_np[2, steps - G * ((steps // G) % run)]
     pts = ck.powers[torch.arange(n, device=dev) % 1024].contiguous()
-    S = torch.from_numpy(S_np).to(dev)
-    digits = msm.digit_rows(S, c, fr_bits, G)
-    before = _cuda.launches[key]
-    got = msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c)
-    if _cuda.launches[key] != before + 1:
-        raise AssertionError(f"bucket_accumulate on {curve} did not launch {key}")
-    # the plain version once (seconds at this size), timed by CUDA events
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    plain = msm.bucket_accumulate_plain(spec, ck.b3, pts, digits, G, c)
-    end.record()
-    end.synchronize()
-    p_ms = start.elapsed_time(end)
-    err = max_abs_err(got, plain)
-    if err != 0:
-        raise AssertionError(f"{key} disagrees (max_abs_err {err})")
-    W = digits.shape[0] // B
-    pts_host = ec.to_affine_host(spec, ck.powers)
-    pts_host = [pts_host[i % 1024] for i in range(n)]
-    digits_h = digits.cpu()
-    for g, bw in ((0, 0), (3 % G, W + 5), (9 % G, 2 * W + 1), (G - 1, 3 * W - 1)):
-        if ec.to_affine_host(spec, got[g, bw]) != _host_row(ck, pts_host, digits_h, g, bw, G, K):
-            raise AssertionError(f"{key} row ({g}, {bw}) wrong against host adds")
-    k_ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c), reps=3, warmup=1)
-    b_ms, b_by = projective_bound(n, B * W, G, K, L)
-    say("parity", kernel=key, curve=curve, shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", ms=k_ms,
-        plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-    records[key] = dict(
-        name=key, route="cuda",
-        source="zkt_plonk_tpu_torch/csrc/ec_bucket_accumulate.cu",
-        replaces="zkt_plonk_tpu/ops/ec_pallas.py:99", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    )
-    if L == 16:
-        parity_bucket_accumulate_affine(records, dev, ck, pts, digits, got, G, c, n, W,
-                                        shape=f"n=2^{log_n}+4,B={B},c={c},G={G}")
-    del got, plain, digits
-    # the prover's other commit batches
-    for B in (1, 2, 6):
-        G = msm.group_count(n, c, B, msm.num_windows(fr_bits + 1, c), L)
-        digits = msm.digit_rows(torch.from_numpy(scalars(B)).to(dev), c, fr_bits, G)
-        ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c),
-                       reps=3, warmup=1)
-        b_ms, b_by = projective_bound(n, digits.shape[0], G, K, L)
-        say("time", kernel=key, curve=curve, shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", ms=ms,
-            bound_ms=b_ms, bound_by=b_by)
-        if L == 16:
-            ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c, affine=True),
-                           reps=3, warmup=1)
-            a_ms, a_by = affine_bound(digits, n, G, K)
-            say("time", kernel=_cuda.instance("ec_bucket_accumulate", affine=True), curve=curve,
-                shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", ms=ms, bound_ms=a_ms, bound_by=a_by,
-                bound_all_steps_ms=b_ms)
-        del digits
-    torch.cuda.empty_cache()
-
-
-def parity_bucket_accumulate_affine(records, dev, ck, pts, digits, projective, G, c, n, W, shape):
-    """K4a's affine instance on the phase's B = 3 digits, over the Z = 1
-    copy (``ec.normalize``, as a key's ``msm_points`` builds it) of the
-    Z = 1 points scaled by random factors to Z != 1: the copy equal to the
-    points, the buckets equal to the plain version's and to the projective
-    instance's on the same digits, four rows against host adds."""
-    from zkt_plonk_tpu_torch import _cuda
-    from zkt_plonk_tpu_torch.fields import device as fd
-    from zkt_plonk_tpu_torch.ops import ec, msm
-
-    spec = ck.ctx.fq_spec
-    key = _cuda.instance("ec_bucket_accumulate", affine=True)
-    K = (1 << (c - 1)) + 1
     lam = torch.from_numpy(random_limbs(spec, n, np.random.default_rng(61))).to(dev)
     lam[:, 0] |= 1  # never zero
     copy = ec.normalize(spec, fd.mul(spec, pts, lam[:, None]))
     if not torch.equal(copy, pts):
         raise AssertionError("ec.normalize of the scaled points is not the points")
+    del pts, lam
+    digits = msm.digit_rows(torch.from_numpy(S_np).to(dev), c, fr_bits, G)
     before = _cuda.launches[key]
-    got = msm.bucket_accumulate(spec, ck.b3, copy, digits, G, c, affine=True)
+    got = msm.bucket_accumulate(spec, ck.b3, copy, digits, G, c)
     if _cuda.launches[key] != before + 1:
-        raise AssertionError(f"bucket_accumulate(affine=True) did not launch {key}")
+        raise AssertionError(f"bucket_accumulate on {curve} did not launch {key}")
+    # the plain version once (seconds at this size), timed by CUDA events
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -732,29 +684,43 @@ def parity_bucket_accumulate_affine(records, dev, ck, pts, digits, projective, G
     end.synchronize()
     p_ms = start.elapsed_time(end)
     err = max_abs_err(got, plain)
-    if err != 0 or not torch.equal(got, projective):
-        raise AssertionError(f"{key} disagrees (max_abs_err {err} against the plain version; "
-                             f"equal to the projective instance: {torch.equal(got, projective)})")
+    if err != 0:
+        raise AssertionError(f"{key} on {curve} disagrees (max_abs_err {err})")
+    del plain
+    W = digits.shape[0] // B
     pts_host = ec.to_affine_host(spec, ck.powers)
     pts_host = [pts_host[i % 1024] for i in range(n)]
     digits_h = digits.cpu()
     for g, bw in ((0, 0), (3 % G, W + 5), (9 % G, 2 * W + 1), (G - 1, 3 * W - 1)):
         if ec.to_affine_host(spec, got[g, bw]) != _host_row(ck, pts_host, digits_h, g, bw, G, K):
             raise AssertionError(f"{key} row ({g}, {bw}) wrong against host adds")
-    k_ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, copy, digits, G, c, affine=True),
+    del got
+    k_ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, copy, digits, G, c),
                      reps=3, warmup=1)
-    b_ms, b_by = affine_bound(digits, n, G, K)
-    all_ms, _ = projective_bound(n, digits.shape[0], G, K)
+    b_ms, b_by = accumulate_bound(digits, n, G, K, L)
     first, repeat, padding = step_counts(digits, n, G, K)
-    say("parity", kernel=key, curve=ck.ctx.name, shape=shape, ms=k_ms,
-        plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, bound_all_steps_ms=all_ms,
-        first_hits=first, repeat_hits=repeat, padding_hits=padding, max_abs_err=err)
-    records[key] = dict(
-        name=key, route="cuda",
-        source="zkt_plonk_tpu_torch/csrc/ec_bucket_accumulate.cu",
-        replaces="zkt_plonk_tpu/ops/ec_pallas.py:99", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    )
+    say("parity", kernel=key, curve=curve, shape=shape, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, bound_share=round(b_ms / k_ms, 4), first_hits=first, repeat_hits=repeat,
+        padding_hits=padding, max_abs_err=err)
+    if record:
+        records[key] = dict(
+            name=key, route="cuda",
+            source="zkt_plonk_tpu_torch/csrc/ec_bucket_accumulate.cu",
+            replaces="zkt_plonk_tpu/ops/ec_pallas.py:99", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        )
+    del digits
+    # the prover's other commit batches
+    for B in (1, 2, 6):
+        G = msm.group_count(n, c, B, msm.num_windows(fr_bits + 1, c), L)
+        digits = msm.digit_rows(torch.from_numpy(scalars(B)).to(dev), c, fr_bits, G)
+        ms = time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, copy, digits, G, c),
+                       reps=3, warmup=1)
+        b_ms, b_by = accumulate_bound(digits, n, G, K, L)
+        say("time", kernel=key, curve=curve, shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", ms=ms,
+            bound_ms=b_ms, bound_by=b_by, bound_share=round(b_ms / ms, 4))
+        del digits
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -888,6 +854,8 @@ def withdraw(dev, height=48, notes=3, table_size=1024, curve="bn254"):
     say("ntt", transforms=sum(per_transform.values()), launches_per_transform=dict(per_transform))
     if bad:
         raise AssertionError(f"transforms that launched more than their D passes of K3: {bad}")
+    if curve != "bn254" and launches["fp_pow_chain/L24"] == 0:
+        raise AssertionError(f"{phase}: the key's Z = 1 copy launched no fp_pow_chain/L24")
     paths = {phase: launches}
     if curve == "bn254":
         paths["withdraw_batch"] = batch_phase(dev, inst, compiled, circuit, pub_inputs)
@@ -1048,12 +1016,11 @@ def sharded_proofs(phase, dev, inst, compiled, circuit, pub_inputs, want, single
         nvidia_smi=f"'{nvidia_smi_line()}'")
     say(phase, launches_per_warm_proof=json.dumps({"single_device": single_launches,
                                                    "sharded_d1": sharded_launches}))
-    if inst.ctx.fq_spec.n_limbs == 16:
-        # the commits run on the key's Z = 1 copy: K4a's affine instance only
-        for path, got in (("single_device", single_launches), ("sharded_d1", sharded_launches)):
-            if got.get("ec_bucket_accumulate/affine", 0) == 0 or got.get("ec_bucket_accumulate", 0):
-                raise AssertionError(f"{phase} {path}: K4a launches {got}: want the affine "
-                                     "instance, never the projective one")
+    # the commits run K4a at the key's width
+    key = _cuda.instance("ec_bucket_accumulate", inst.ctx.fq_spec.n_limbs)
+    for path, got in (("single_device", single_launches), ("sharded_d1", sharded_launches)):
+        if got.get(key, 0) == 0:
+            raise AssertionError(f"{phase} {path}: K4a launches {got}: want {key}")
 
 
 def device_busy_share(fn):
@@ -1374,6 +1341,9 @@ def matrix(dev):
             torch.cuda.synchronize()
             secs[where] = round(time.perf_counter() - t0, 3)
             if where == "card":
+                if scheme == "kzg" and not _cuda.launches["fp_pow_chain/L24"]:
+                    raise AssertionError(f"kzg {curve}: the key's Z = 1 copy launched no "
+                                         "fp_pow_chain/L24")
                 for k, v in _cuda.launches.items():
                     launches[k] += v
                 card = (inst, compiled)
@@ -1621,17 +1591,15 @@ def ptxas_report(name: str):
 
 
 def occupancy_report() -> None:
-    """Resident blocks per SM and registers of K4 and K4a at L = 16 and 24
-    and of K4a's affine instance, from the card; each K4a instance's blocks
-    must equal ``ops/msm.py``'s table (``ACC_RESIDENT_BLOCKS``, from which
-    ``msm.group_count`` sizes its bucket rows, and
-    ``ACC_PROJECTIVE_L16_BLOCKS``)."""
+    """Resident blocks per SM and registers of K4 and K4a at L = 16 and 24,
+    from the card; each K4a instance's blocks must equal ``ops/msm.py``'s
+    ``ACC_RESIDENT_BLOCKS``, from which ``msm.group_count`` sizes its bucket
+    rows."""
     from zkt_plonk_tpu_torch import _cuda
     from zkt_plonk_tpu_torch.ops import msm
 
-    table = {"ec_bucket_accumulate": msm.ACC_PROJECTIVE_L16_BLOCKS,
-             "ec_bucket_accumulate/affine": msm.ACC_RESIDENT_BLOCKS[16],
-             "ec_bucket_accumulate/L24": msm.ACC_RESIDENT_BLOCKS[24]}
+    table = {_cuda.instance("ec_bucket_accumulate", L): msm.ACC_RESIDENT_BLOCKS[L]
+             for L in (16, 24)}
     for key in _cuda.OCCUPANCY_INSTANCES:
         blocks, regs = _cuda.occupancy(key)
         say("occupancy", kernel=key, threads=msm.ACC_THREADS, blocks_per_sm=blocks,
@@ -1672,6 +1640,8 @@ def main() -> int:
     for name in _cuda.KERNELS:
         for fn, regs, st, ld in ptxas_report(name):
             say("ptxas", kernel=name, fn=fn, registers=regs, spill_stores=st, spill_loads=ld)
+            if fn.startswith("bucket_accumulate") and st + ld:
+                raise AssertionError(f"K4a's {fn} spills ({st} B stored, {ld} B loaded)")
     sass_mix()
     occupancy_report()
 
@@ -1688,6 +1658,7 @@ def main() -> int:
         parity_ec_add(records, dev, "bls12_377", record=False)
         parity_ec_bucket_accumulate(records, dev)
         parity_ec_bucket_accumulate(records, dev, "bls12_381")
+        parity_ec_bucket_accumulate(records, dev, "bls12_377", record=False)
         say("total", after="parity", wall_s=round(time.perf_counter() - T_START, 1))
 
     # the main paths, each counted from zero around its own run
@@ -1723,15 +1694,8 @@ def main() -> int:
         print("chip_smoke: partial run of phases " + ",".join(sorted(phases)), flush=True)
         return 0
 
-    # every instance lies on a main path, except K1 at L = 24 (the BLS12 base
-    # fields' arithmetic on the card is the EC kernels' own) and K4a's
-    # projective L = 16 instance (every key commits over its Z = 1 copy)
-    off_path = {"fp_binop/L24": "on no main path: the BLS12 base-field arithmetic of the "
-                                "main paths runs inside K4 and K4a",
-                "ec_bucket_accumulate": "on no main path: every key's commits at L = 16 run "
-                                        "the affine instance; this one serves bare msm.msm "
-                                        "calls on projective points"}
-    missing = [k for k in _cuda.INSTANCES if launches[k] <= 0 and k not in off_path]
+    # every instance lies on a main path
+    missing = [k for k in _cuda.INSTANCES if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernel instances not launched on the main paths: {missing}")
 
@@ -1742,8 +1706,6 @@ def main() -> int:
         kernels.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")})
-        if name in off_path and launches[name] == 0:
-            kernels[-1]["note"] = off_path[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

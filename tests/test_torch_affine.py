@@ -1,12 +1,14 @@
-"""The Z = 1 copy of a key's points that K4a's affine instance commits over.
+"""The Z = 1 points that K4a takes, on BN254 (L = 16) and BLS12-381
+(L = 24).
 
 * ``ec.normalize`` of small-SRS points scaled to (lX : lY : lZ) by random
   factors gives back the points bit for bit, and their host affine points
   are the JAX package's SRS points; a point with Z = 0 raises;
-* ``msm.bucket_accumulate(..., affine=True)`` raises on a point with
-  Z != 1 and on a width without an affine instance;
-* ``msm.msm_totals`` over the copy gives the affine window totals of the
-  scaled points;
+* ``msm.bucket_accumulate`` raises on a point with Z != 1 and on a window
+  past its instance's shared memory;
+* ``msm.msm_totals`` over the copy gives the window totals of the scaled
+  points, which it normalizes itself, and they fold to the JAX package's
+  host MSM;
 * ``kzg.Committer`` on a key of scaled points commits through the copy,
   built once per key and shared by its committers, and equals the JAX
   package's commitments over the same scaled points; the IPA generators'
@@ -21,27 +23,29 @@ import pytest
 import torch
 
 from zkt_plonk_tpu.commitment import kzg as jkzg
+from zkt_plonk_tpu.curves import curve_host as jch
 from zkt_plonk_tpu.curves import make_context as jax_make_context
 from zkt_plonk_tpu.ops import ec as jec
 from zkt_plonk_tpu_torch.commitment import ipa, kzg
 from zkt_plonk_tpu_torch.curves import make_context
 from zkt_plonk_tpu_torch.fields import device as fd
-from zkt_plonk_tpu_torch.fields.limbs import ints_to_array
+from zkt_plonk_tpu_torch.fields.limbs import array_to_ints, ints_to_array
 from zkt_plonk_tpu_torch.ops import ec, msm
 
 N, TAU = 68, 4242
 
 
-@pytest.fixture(scope="module")
-def scaled():
-    """The small BN254 SRS (Z = 1) and the same points scaled by random
-    factors l: (lX : lY : l)."""
-    ctx = make_context("bn254")
+@pytest.fixture(scope="module", params=["bn254", "bls12_381"])
+def scaled(request):
+    """A small SRS (Z = 1) and the same points scaled by random factors l:
+    (lX : lY : l)."""
+    ctx = make_context(request.param)
     ck, _ = kzg.setup(ctx, max_degree=N - 1, tau=TAU, device="cpu")
     p = ctx.fq_spec.modulus
+    L = ctx.fq_spec.n_limbs
     rng = np.random.default_rng(68)
-    lam = [int.from_bytes(rng.bytes(32), "little") % (p - 1) + 1 for _ in range(N)]
-    lam_limbs = torch.from_numpy(ints_to_array(lam, 16).astype(np.int32))
+    lam = [int.from_bytes(rng.bytes(2 * L), "little") % (p - 1) + 1 for _ in range(N)]
+    lam_limbs = torch.from_numpy(ints_to_array(lam, L).astype(np.int32))
     return ctx, ck, fd.mul(ctx.fq_spec, ck.powers, lam_limbs[:, None])
 
 
@@ -59,8 +63,9 @@ def test_normalize_gives_the_points_and_the_jax_srs(scaled):
     assert not torch.equal(pts[:, 2], ck.powers[:, 2])
     copy = ec.normalize(spec, pts)
     assert torch.equal(copy, ck.powers)
-    jck, _ = jkzg.setup(jax_make_context("bn254"), max_degree=N - 1, tau=TAU)
-    want = jec.to_affine_host(jax_make_context("bn254").fq_spec, np.asarray(jck.powers))
+    jctx = jax_make_context(ctx.name)
+    jck, _ = jkzg.setup(jctx, max_degree=N - 1, tau=TAU)
+    want = jec.to_affine_host(jctx.fq_spec, np.asarray(jck.powers))
     assert ec.to_affine_host(spec, copy) == [(int(x), int(y)) for x, y in want]
 
 
@@ -73,15 +78,15 @@ def test_normalize_refuses_the_identity(scaled):
 
 def test_affine_accumulate_refuses_points_without_z_one(scaled):
     ctx, ck, pts = scaled
+    spec = ctx.fq_spec
     digits = torch.zeros((2, 72), dtype=torch.int16)
     with pytest.raises(ValueError, match="Z = 1"):
-        msm.bucket_accumulate(ctx.fq_spec, ck.b3, pts, digits, 8, 4, affine=True)
-    ctx24 = make_context("bls12_381")
-    ident = ec.identity(ctx24.fq_spec, (8,), device="cpu").contiguous()
-    b3 = ec.b3_const(ctx24.fq_spec, ctx24.curve.b, device="cpu")
-    with pytest.raises(ValueError, match="no instance"):
-        msm.bucket_accumulate(ctx24.fq_spec, b3, ident, torch.zeros((2, 8), dtype=torch.int16),
-                              8, 4, affine=True)
+        msm.bucket_accumulate(spec, ck.b3, pts, digits, 8, 4)
+    # the masks of a wider window and the L = 24 instance's staged values
+    # would pass 48 KB of shared memory a block
+    c = msm.ACC_MAX_C[spec.n_limbs] + 1
+    with pytest.raises(ValueError, match=f"windows up to c = {c - 1}"):
+        msm.bucket_accumulate(spec, ck.b3, ck.powers, digits, 8, c)
 
 
 def test_msm_totals_over_the_copy_match_the_scaled_points(scaled):
@@ -90,11 +95,12 @@ def test_msm_totals_over_the_copy_match_the_scaled_points(scaled):
     S = _scalars(ctx, N, 5)
     fr_bits = ctx.curve.fr.modulus.bit_length()
     copy = msm.commit_points(spec, pts)
-    assert copy.affine
     got = msm.msm_totals(spec, ck.b3, copy, S, fr_bits, c=4, groups=8)
-    want = msm.msm_totals(spec, ck.b3, pts, S, fr_bits, c=4, groups=8)
-    assert not torch.equal(got, want)  # other bucket words ...
-    assert ec.to_affine_host(spec, got) == ec.to_affine_host(spec, want)  # ... the same points
+    assert torch.equal(got, msm.msm_totals(spec, ck.b3, pts, S, fr_bits, c=4, groups=8))
+    jctx = jax_make_context(ctx.name)
+    want = jch.msm([(jctx.Fq(x), jctx.Fq(y)) for x, y in ec.to_affine_host(spec, pts)],
+                   array_to_ints(S.numpy()))
+    assert msm.fold_windows_host(spec, ctx.Fq, got, 4) == (int(want[0]), int(want[1]))
 
 
 def test_committer_commits_through_the_keys_copy_as_jax_does(scaled):
@@ -102,19 +108,19 @@ def test_committer_commits_through_the_keys_copy_as_jax_does(scaled):
     key = kzg.CommitterKey(ctx=ctx, powers=pts, b3=ck.b3)
     polys = torch.stack([_scalars(ctx, N, 11), _scalars(ctx, N, 12)])
     got = kzg.Committer(key).commit_many(polys)
-    assert key.__dict__["msm_points"].affine
+    assert isinstance(key.__dict__["msm_points"], msm.CommitPoints)
     copy = key.msm_points.points
     assert kzg.Committer(key).ck.msm_points.points is copy  # one copy per key
-    jctx = jax_make_context("bn254")
+    jctx = jax_make_context(ctx.name)
     jkey = jkzg.CommitterKey(ctx=jctx, powers=pts.numpy().astype(np.uint32),
-                             b3=jec.b3_const(jctx.fq_spec, 3))
+                             b3=jec.b3_const(jctx.fq_spec, jctx.curve.b))
     assert got == jkzg.Committer(jkey).commit_many(polys.numpy().astype(np.uint32))
 
 
 def test_ipa_generators_copy_is_the_generators():
     ck, _ = ipa.setup("bn254", max_degree=7, device="cpu")
-    points, affine = ck.msm_points
-    assert affine and torch.equal(points, ck.gens_dev)
+    (points,) = ck.msm_points
+    assert torch.equal(points, ck.gens_dev)
     rng = random.Random(13)
     coeffs = [rng.randrange(ck.ctx.curve.fr.modulus) for _ in range(8)]
     assert ipa.commit(ck, coeffs, device=True) == ipa.commit(ck, coeffs)  # over the copy

@@ -1,4 +1,4 @@
-"""The EC kernels' own word arithmetic, compiled for the host.
+"""The kernels' own word arithmetic, compiled for the host.
 
 ``zkt_plonk_tpu_torch/csrc/field.cuh`` and ``csrc/ec.cuh`` are the
 arithmetic of kernels K4 and K4a.  Here they are built with ``g++`` beside
@@ -6,9 +6,11 @@ a host ``ptx.cuh`` (each PTX carry primitive on one carry flag, the
 shared-memory loads and stores as plain ones) and a stub
 ``cuda_runtime.h``, and called through ctypes:
 
-* ``mont_cios`` (a product interleaved with its reduction) and
+* ``mont_cios`` (a product interleaved with its reduction),
   ``mont_staged`` (the same with its row operands in shared memory, for a
-  product and for a sum of two) against Python ints, word for word, at
+  product and for a sum of two, its loop unrolled or not) and
+  ``mont_staged_pair`` (two products, rows in turns) against Python ints,
+  word for word, at
   operands 0, 1, p - 1, p, 2p - 1 and 2p (the lazy bounds) and random ones
   below 2p;
 * ``rcb_add`` (registers, the 8-word instance's form) and
@@ -18,14 +20,21 @@ shared-memory loads and stores as plain ones) and a stub
   ``ops.ec_cuda.add_plain`` bit for bit after conversion out of Montgomery
   form: the identity, doublings, P + (-P), random projective pairs of
   curve points, and coordinates at 0, 1 and p - 1;
-* the three step forms of K4a's affine instance against ``add_plain`` bit
-  for bit in the same way: ``rcb_add_mixed`` (Q with Z = 1: random pairs,
-  P + P, P + (-P), the bucket at the identity, coordinates at 0, 1 and
-  p - 1), ``rcb_first_hit`` (the identity plus Q with Z = 1) and
+* K4a's step forms (points with Z = 1) against ``add_plain`` bit for
+  bit in the same way, on the three curves: ``rcb_add_mixed`` (registers,
+  the 8-word instance's repeat hits) and ``rcb_add_mixed_staged`` (inputs
+  staged in shared memory, the 12-word instance's) on Q with Z = 1 (random
+  pairs, P + P, P + (-P), the bucket at the identity, coordinates at 0, 1
+  and p - 1), ``rcb_first_hit`` (the identity plus Q with Z = 1) and
   ``rcb_add_identity`` (P plus the identity, and plus its negation
-  (0 : -1 : 0)).
+  (0 : -1 : 0)), the last two at 12 words through ``mont_canon``'s
+  interleaved products;
+* kernel K2's chain (the device part of ``csrc/fp_pow_chain.cu``, run as
+  one thread) against Python's ``pow``, e = p - 2 and 5, in each of its
+  instances: lazy at L = 16 (BN254's Fr), strict at L = 16 (BLS12-381's
+  Fr) and lazy at L = 24 (BLS12-381's and BLS12-377's Fq).
 
-Without ``g++`` the module's fixture skips.
+Without ``g++`` the module's fixtures skip.
 """
 
 import ctypes
@@ -41,7 +50,10 @@ import torch
 from zkt_plonk_tpu_torch import _cuda
 from zkt_plonk_tpu_torch.curves import curve_host as ch
 from zkt_plonk_tpu_torch.curves import make_context
+from zkt_plonk_tpu_torch.fields import cuda as fc
+from zkt_plonk_tpu_torch.fields import make_spec
 from zkt_plonk_tpu_torch.fields.limbs import array_to_ints, ints_to_array
+from zkt_plonk_tpu_torch.fields.params import BLS12_377_FQ, BLS12_381_FQ, BLS12_381_FR, BN254_FR
 from zkt_plonk_tpu_torch.ops import ec, ec_cuda
 
 CSRC = Path(__file__).resolve().parents[1] / "zkt_plonk_tpu_torch" / "csrc"
@@ -95,6 +107,13 @@ struct int4 { int x, y, z, w; };
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return uint4{x, y, z, w}; }
 inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz((unsigned)v); }
+inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned s) {
+  s &= 31;
+  return s ? (hi << s) | (lo >> (32 - s)) : hi;
+}
+// one block of one thread
+struct uint3 { unsigned x, y, z; };
+static const uint3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1}, gridDim{1, 1, 1};
 """
 
 SHIM = r"""
@@ -115,6 +134,12 @@ static void mont_n(int mode, const uint32_t* h, const uint32_t* a, const uint32_
     if (mode == 0) mont_cios<L>(out + o, a + o, b + o, fc);
     if (mode == 1) ecw::mont_staged<L, false>(out + o, st, 0, b + o, 0, b + o, fc);
     if (mode == 2) ecw::mont_staged<L, true>(out + o, st, 0, b + o, 1, d + o, fc);
+    if (mode == 3 || mode == 4) {
+      uint32_t r1[NW], r2[NW];
+      ecw::mont_staged_pair<L>(r1, 0, b + o, r2, 1, d + o, st, fc);
+      for (int j = 0; j < NW; ++j) out[o + j] = mode == 3 ? r1[j] : r2[j];
+    }
+    if (mode == 5) ecw::mont_staged<L, true, true>(out + o, st, 0, b + o, 1, d + o, fc);
   }
 }
 
@@ -156,10 +181,21 @@ static void forms_n(int form, const uint32_t* h, const uint32_t* P, const uint32
       ecw::rcb_add_mixed<L>(o, o + NW, o + 2 * NW, p, p + NW, p + 2 * NW, q, q + NW, b3, fc);
     if (form == 1) ecw::rcb_first_hit<L>(o, o + NW, o + 2 * NW, q, q + NW, fc);
     if (form == 2) ecw::rcb_add_identity<L>(o, o + NW, o + 2 * NW, p, p + NW, p + 2 * NW, fc);
+    if (form == 3) {
+      uint4 buf[ecw::MIXED_STAGED_VALUES * NW / 4];
+      const ecw::Staged<NW> st{buf, 1};
+      for (int c = 0; c < 3; ++c) st.store(c, p + c * NW);
+      st.store(3, q);
+      st.store(4, q + NW);
+      ecw::rcb_add_mixed_staged<L>(st, b3, fc, [&](int c, const uint32_t* w) {
+        for (int j = 0; j < NW; ++j) o[c * NW + j] = w[j];
+      });
+    }
   }
 }
 
-// form 0: P + Q for Q with Z = 1; 1: the identity + Q (P unread); 2: P + the identity
+// form 0: P + Q for Q with Z = 1; 1: the identity + Q (P unread); 2: P + the
+// identity; 3: form 0 staged
 extern "C" void host_rcb_form(int L, int form, const uint32_t* h, const uint32_t* P,
                               const uint32_t* Q, int b3, uint32_t* out, long n) {
   if (L == 16) forms_n<16>(form, h, P, Q, b3, out, n);
@@ -182,24 +218,54 @@ extern "C" void host_rcb(int L, int staged, const uint32_t* h, const uint32_t* P
 CURVES = ("bn254", "bls12_381", "bls12_377")
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+POW_SHIM = r"""
+#include "pow_chain.cuh"
+using namespace zk;
+
+extern "C" void host_pow_chain(int L, int strict, const uint32_t* h, const int32_t* a,
+                               int32_t* out, long long n, int ntab, int first, int nsteps,
+                               int tail, const uint16_t* sq, const uint8_t* dig) {
+  PowSchedule e{};
+  e.ntab = ntab;
+  e.first = first;
+  e.nsteps = nsteps;
+  e.tail = tail;
+  for (int s = 0; s < nsteps; ++s) {
+    e.sq[s] = sq[s];
+    e.dig[s] = dig[s];
+  }
+  if (L == 16 && strict) fp_pow_chain_kernel<16, true>(a, out, n, e, consts_from_host<16>(h));
+  if (L == 16 && !strict) fp_pow_chain_kernel<16, false>(a, out, n, e, consts_from_host<16>(h));
+  if (L == 24 && !strict) fp_pow_chain_kernel<24, false>(a, out, n, e, consts_from_host<24>(h));
+}
+"""
+
+
+def _host_build(tmp_path_factory, name, headers, shim):
+    """``shim`` built with g++ beside the host ptx.cuh, the CUDA stub and
+    ``headers`` ({file name: text}), loaded with ctypes."""
     gxx = shutil.which("g++")
     if gxx is None:
-        pytest.skip("g++ not found: the host build of csrc/field.cuh and csrc/ec.cuh needs it")
-    d = tmp_path_factory.mktemp("csrc_host")
+        pytest.skip("g++ not found: the host build of the kernels' headers needs it")
+    d = tmp_path_factory.mktemp(name)
     (d / "ptx.cuh").write_text(HOST_PTX)
     (d / "cuda_runtime.h").write_text(CUDA_STUB)
-    for name in ("field.cuh", "ec.cuh"):
-        shutil.copy(CSRC / name, d / name)
-    (d / "shim.cpp").write_text(SHIM)
-    so = d / "libhost_ec.so"
+    for fname, text in headers.items():
+        (d / fname).write_text(text)
+    (d / "shim.cpp").write_text(shim)
+    so = d / f"lib{name}.so"
     subprocess.run(
         [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas", "-I", str(d),
          "-o", str(so), str(d / "shim.cpp")],
         check=True, capture_output=True, text=True, timeout=240,
     )
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    lib = _host_build(tmp_path_factory, "host_ec",
+                      {name: (CSRC / name).read_text() for name in ("field.cuh", "ec.cuh")}, SHIM)
     P, I, LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     lib.host_mont.argtypes = [I, I, P, P, P, P, P, P, LONG]
     lib.host_rcb.argtypes = [I, I, P, P, P, I, P, LONG]
@@ -242,13 +308,15 @@ def test_interleaved_products_match_python_word_for_word(host_lib, curve):
     ops += [tuple(rng.randrange(2 * p) for _ in range(4)) for _ in range(300)]
     a, b, c, d = (_words([o[k] for o in ops], nw) for k in range(4))
     consts = _cuda.ec_field_consts(spec)
-    for mode in (0, 1, 2):  # mont_cios, mont_staged, mont_staged with a sum
-        sum_ = mode == 2
+    # mont_cios, mont_staged, mont_staged with a sum, mont_staged_pair's two
+    # products, mont_staged unrolled with a sum
+    for mode in (0, 1, 2, 3, 4, 5):
+        sum_ = mode in (2, 5)
         out = np.zeros_like(a)
         host_lib.host_mont(L, mode, consts, _ptr(a), _ptr(b), _ptr(c), _ptr(d), _ptr(out), len(ops))
         got = _ints(out)
         for (x, y, z, w), r in zip(ops, got):
-            T = x * y + (z * w if sum_ else 0)
+            T = z * w if mode == 4 else x * y + (z * w if sum_ else 0)
             assert r == _exact_redc(T, p, nw), (curve, mode, x, y, z, w)
             assert r * R < T + p * R and (sum_ or r < 2 * p)
 
@@ -348,12 +416,13 @@ def _plain(spec, b3, P, Q):
     return [tuple(out[3 * i:3 * i + 3]) for i in range(n)]
 
 
-@pytest.mark.parametrize("form", ["mixed", "first_hit", "padding"])
+@pytest.mark.parametrize("form", ["mixed", "mixed_staged", "first_hit", "padding"])
 @pytest.mark.parametrize("curve", CURVES)
 def test_affine_step_forms_match_add_plain_bit_for_bit(host_lib, curve, form):
-    """K4a's affine instance's three step forms give add_plain's canonical
-    words: the mixed add on Q with Z = 1, the first hit (the bucket at the
-    identity) and the padding step (the identity, of either sign, added)."""
+    """K4a's step forms (points with Z = 1) give add_plain's canonical words:
+    the mixed add on Q with Z = 1 (in registers and staged), the first hit
+    (the bucket at the identity) and the padding step (the identity, of
+    either sign, added)."""
     ctx = make_context(curve)
     spec = ctx.fq_spec
     p = spec.modulus
@@ -373,7 +442,7 @@ def test_affine_step_forms_match_add_plain_bit_for_bit(host_lib, curve, form):
     P = [a for a, b in pairs if z1(b) is not None] + [pairs[i % len(pairs)][0] for i in range(len(qs))]
     Q = [z1(b) for a, b in pairs if z1(b) is not None] + qs
     ident = (0, 1, 0)
-    if form == "mixed":
+    if form in ("mixed", "mixed_staged"):
         P[:len(qs)] = [ident] * len(qs)  # the bucket at the identity
         want = _plain(spec, b3, P, Q)
     elif form == "first_hit":
@@ -383,5 +452,40 @@ def test_affine_step_forms_match_add_plain_bit_for_bit(host_lib, curve, form):
         Q = [ident] * len(P)
         want = _plain(spec, b3, P, Q)
         assert _plain(spec, b3, P, [(0, p - 1, 0)] * len(P)) == want
-    code = {"mixed": 0, "first_hit": 1, "padding": 2}[form]
+    code = {"mixed": 0, "first_hit": 1, "padding": 2, "mixed_staged": 3}[form]
     assert _host_form(host_lib, spec, P, Q, b3.value, code) == want
+
+
+@pytest.fixture(scope="module")
+def pow_lib(tmp_path_factory):
+    """K2's device code: ``csrc/fp_pow_chain.cu`` up to its C launcher."""
+    device_part = (CSRC / "fp_pow_chain.cu").read_text().split('extern "C"')[0]
+    lib = _host_build(tmp_path_factory, "host_pow",
+                      {"field.cuh": (CSRC / "field.cuh").read_text(), "pow_chain.cuh": device_part},
+                      POW_SHIM)
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.host_pow_chain.argtypes = [I, I, P, P, P, LL, I, I, I, I, P, P]
+    return lib
+
+
+@pytest.mark.parametrize("params", [BN254_FR, BLS12_381_FR, BLS12_381_FQ, BLS12_377_FQ],
+                         ids=lambda f: f.name)
+def test_pow_chain_matches_python_pow(pow_lib, params):
+    """Each of K2's instances: the chain of the wrapper's window schedule
+    gives x^e mod p, 0 -> 0, in the mode the wrapper picks for the field."""
+    spec = make_spec(params)
+    L = spec.n_limbs
+    p = spec.modulus
+    strict, consts = _cuda.reduction_consts(spec)
+    assert strict == (params is BLS12_381_FR)
+    rng = random.Random(p % 1009)
+    vals = [0, 1, 2, p - 2, p - 1] + [rng.randrange(p) for _ in range(40)]
+    a = ints_to_array(vals, L).astype(np.int32)
+    for e in (p - 2, 5):
+        sched = fc.window_schedule(e)
+        sq = np.array([s for s, _ in sched.steps] or [0], dtype=np.uint16)
+        dig = np.array([d for _, d in sched.steps] or [0], dtype=np.uint8)
+        out = np.zeros_like(a)
+        pow_lib.host_pow_chain(L, int(strict), consts, _ptr(a), _ptr(out), len(vals), sched.ntab,
+                               sched.first, len(sched.steps), sched.tail, _ptr(sq), _ptr(dig))
+        assert array_to_ints(out) == [pow(v, e, p) for v in vals], (params.name, e)

@@ -12,8 +12,7 @@ nowhere else, through ``count``, which holds a lock so that the counts
 stay exact when several threads launch at once (``parallel.BatchProver``).  An instance is a kernel at one limb count and reduction
 mode: ``ec_add_complete`` is K4 at L = 16, ``ec_add_complete/L24`` K4 at
 L = 24 (the BLS12 base fields), ``ntt_col_pass/strict`` K3 in its strict
-mode (``reduction_consts``), ``ec_bucket_accumulate/affine`` K4a at
-L = 16 on points with Z = 1.
+mode (``reduction_consts``), ``fp_pow_chain/L24`` K2 at L = 24.
 
 ``work`` counts, beside the launches and under the same lock, the work
 that a kernel's caller asks of it, computed from the call's arguments
@@ -48,8 +47,8 @@ NVCC_FLAGS = [
 
 # the instances beyond each kernel's L = 16 lazy one
 EXTRA_INSTANCES = (
-    "fp_binop/L24", "fp_pow_chain/strict", "ntt_col_pass/strict", "ec_add_complete/L24",
-    "ec_bucket_accumulate/L24", "ec_bucket_accumulate/affine",
+    "fp_binop/L24", "fp_pow_chain/L24", "fp_pow_chain/strict", "ntt_col_pass/strict",
+    "ec_add_complete/L24", "ec_bucket_accumulate/L24",
 )
 INSTANCES = KERNELS + EXTRA_INSTANCES
 
@@ -79,12 +78,11 @@ def reset_launches() -> None:
             launches[name] = 0
 
 
-def instance(kernel: str, L: int = 16, strict: bool = False, affine: bool = False) -> str:
+def instance(kernel: str, L: int = 16, strict: bool = False) -> str:
     """The launch counter of ``kernel`` at L limbs in the given mode."""
-    name = (kernel + ("/L24" if L == 24 else "") + ("/strict" if strict else "")
-            + ("/affine" if affine else ""))
+    name = kernel + ("/L24" if L == 24 else "") + ("/strict" if strict else "")
     if name not in launches:
-        raise ValueError(f"{kernel} has no instance for L = {L}, strict = {strict}, affine = {affine}")
+        raise ValueError(f"{kernel} has no instance for L = {L}, strict = {strict}")
     return name
 
 
@@ -180,8 +178,7 @@ def _declare(name: str, cdll: ctypes.CDLL) -> ctypes.CDLL:
         "fp_pow_chain": {"zk_fp_pow_chain": [I, P, P, LL, I, I, I, I, U16P, U8P, I, UP, P]},
         "ntt_col_pass": {"zk_ntt_fused_pass": [I, P, P, I, LL, LL, I, I, I, I, P, P, P, I, UP, P]},
         "ec_add_complete": {"zk_ec_add_complete": [I, P, P, P, LL, I, LLP, LLP, LLP, I, UP, P]},
-        "ec_bucket_accumulate": {"zk_ec_bucket_accumulate": acc,
-                                 "zk_ec_bucket_accumulate_affine": acc},
+        "ec_bucket_accumulate": {"zk_ec_bucket_accumulate": acc},
     }
     occ = [I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     fns = dict(sigs[name])
@@ -198,14 +195,12 @@ def _declare(name: str, cdll: ctypes.CDLL) -> ctypes.CDLL:
 # the instances whose libraries report their occupancy
 OCCUPANCY_INSTANCES = (
     "ec_add_complete", "ec_add_complete/L24", "ec_bucket_accumulate", "ec_bucket_accumulate/L24",
-    "ec_bucket_accumulate/affine",
 )
 
 
 def _occupancy_fn(inst: str) -> str:
-    """The library export of ``inst``'s occupancy: zk_<kernel>[_affine]_occupancy(L, ...)."""
-    kernel = inst.split("/")[0]
-    return f"zk_{kernel}{'_affine' if inst.endswith('/affine') else ''}_occupancy"
+    """The library export of ``inst``'s occupancy: zk_<kernel>_occupancy(L, ...)."""
+    return f"zk_{inst.split('/')[0]}_occupancy"
 
 
 def occupancy(inst: str):

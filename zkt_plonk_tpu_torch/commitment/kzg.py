@@ -50,8 +50,8 @@ class CommitterKey:
     @cached_property
     def msm_points(self) -> msm.CommitPoints:
         """The powers as commits take them (``msm.commit_points``: a Z = 1
-        copy at L = 16), built on first use and shared by every committer
-        of this key; derived state, never serialized."""
+        copy), built on first use and shared by every committer of this
+        key; derived state, never serialized."""
         return msm.commit_points(self.ctx.fq_spec, self.powers)
 
 

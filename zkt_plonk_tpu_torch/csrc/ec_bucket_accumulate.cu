@@ -12,20 +12,32 @@
 // in the reference's order, so the buckets are bit for bit the ones of the
 // per-step loop (msm.bucket_accumulate_plain).
 //
-// What bounds it on the H100: integer multiplies (12 products and 9
-// reductions per add, B*W*n_pad adds).  Design:
-// * the whole accumulation is Montgomery form: a first kernel converts the
-//   points once to packed NW-word Montgomery values (identity rows for the
-//   padding), the buckets start as the Montgomery identity, and the shared
-//   rcb_add of ec.cuh needs no R^4 corrections (12 products, 9
-//   reductions); each thread converts its row to canonical 16-bit limbs
-//   after its last step, in place;
+// The points have Z = 1 (ops/msm.py: a key's copy, commit_points, or a
+// bare tensor normalized by as_commit_points); Z is never read.
+//
+// What bounds it on the H100: integer multiplies.  Design:
+// * the whole accumulation is Montgomery form: a first kernel converts x
+//   and y of the points once to packed NW-word Montgomery values (64 B a
+//   point at 8 words), and each thread converts its row to canonical
+//   16-bit limbs after its last step, in place;
 // * a bucket lives in its output slot of 3*L words, the Montgomery words in
-//   the first half, so the packed form halves the bytes per add (96 B read
-//   and written per bucket, 96 B per point) and no scratch is allocated for
-//   the buckets;
+//   the first half, so the packed form halves the bytes per step and no
+//   scratch is allocated for the buckets;
+// * a step into a bucket that already holds a point is a mixed add
+//   (ecw::rcb_add_mixed, RCB 2015 Algorithm 8: 11 products and 8
+//   reductions); a step into a bucket that still holds the identity is a
+//   first hit, (x y : y^2 : y) (ecw::rcb_first_hit, 2 products, no bucket
+//   read); and a padding step (j*G + g >= n, the identity with digit 0)
+//   adds the identity, (X1 Y1 : Y1^2 : Y1 Z1) (ecw::rcb_add_identity, 3
+//   products), or nothing to a bucket still at the identity.  All three
+//   give the complete add's canonical words (ecw::rcb_add, Algorithm 7);
+// * no init pass writing K identity slots per row: a mask of K bits per
+//   thread in shared memory says which buckets were hit, and the buckets
+//   never hit are written as the canonical identity at the end (at 12
+//   words a warp's rows one after another, so that its lanes touch
+//   neighbouring slots);
 // * g varies fastest across a warp: the 32 threads read 32 consecutive
-//   points (3 KB, coalesced) and 32 consecutive int16 digits; their bucket
+//   points (coalesced) and 32 consecutive int16 digits; their bucket
 //   accesses are scattered whatever the order, since the digits differ.
 //   With bw fastest the point read would be a broadcast, but the digits
 //   (BW, n_pad) would be 32 separate rows;
@@ -33,47 +45,39 @@
 //   so a negative zero (a window of 2^c after the carry) keeps its sign;
 // * a step loads its bucket only after the previous step stored it, so
 //   equal digits on consecutive steps need no forwarding; the step's loads
-//   are short next to its twelve products, and other warps cover them;
-// * __launch_bounds__(128) with no minimum of blocks: ptxas gives the
-//   8-word instance 142 registers and no spills (3 blocks per SM); asking
-//   for 4 blocks makes it spill;
-// * the affine instance at 8 words (bucket_accumulate_affine_kernel) is the
-//   form every commitment key's MSM runs (a Z = 1 copy of the key's points,
-//   ops/msm.py commit_points): see its own note below;
-// * the 12-word instance (the BLS12 base fields) runs the formula shaped
-//   for the register file, ec.cuh's rcb_add_staged: the step's bucket and
-//   point go to shared memory (7 values of 48 B per thread with the
-//   formula's scratch, 42 KB per block), each product is interleaved with
-//   its reduction and reads its row operands from there a quad at a time,
-//   in a loop the compiler does not unroll.  ptxas gives it 126 registers
-//   and no spills, so 4 blocks fit on an SM (the same code held in
-//   registers took 240 and 2 blocks); the same staging at 8 words took
-//   longer than the register form, so that instance keeps it (PERF.md).
+//   are short next to its products, and other warps cover them.
+//
+// Registers: ptxas gives the 8-word instance 168 and no spills at 3 blocks
+// of 128 per SM.  Held to 128 for 4 blocks it spills 76 B and took 8-10%
+// longer at every batch; and at the prover's G's a batch of one fills only
+// about 2 blocks per SM (PERF.md).
+//
+// The 12-word instance (the BLS12 base fields) runs its repeat hits shaped
+// for the register file: the bucket and the point go to shared memory and
+// ecw::rcb_add_mixed_staged (products interleaved with their reductions,
+// row operands from shared memory) writes the sum back; 6 values of 48 B
+// per thread, 36 KB a block beside the masks (5 KB at c = 8).  Its first
+// hits and padding steps keep their operands in registers, each product
+// interleaved with its reduction (ecw::mont_canon).  It too runs at 3
+// blocks per SM: held to 128 registers for 4 it spilled 104 B (PERF.md).
+//
+// A warp's 32 rows hit their buckets' first time at different steps, and a
+// warp runs a branch's two sides one after the other, so first hits taken
+// where they fall would cost a mixed add's time almost every step.  The
+// first hits of a row commute with its other steps (no earlier step touched
+// that bucket), so they run in a pass of their own ahead of the rest:
+// pass 1 walks the row and writes each bucket's first hit; pass 2 walks it
+// again and adds every later hit.  In each pass a thread runs ahead over
+// the steps the pass skips (a digit and a mask bit each) to its next step
+// of work, so the warp's threads meet at the products.  Then the padding
+// steps, the row's last, in order.  Each pass loads the next step's digit
+// before the current step's products.  Without pass 1 (an init pass, every
+// step a mixed add) the kernel took 6-16% longer (PERF.md).
 #include "ec.cuh"
 
 namespace zk {
 
 constexpr int ACC_THREADS = 128;
-
-// pm[i] = Montgomery form of point i (canonical words), identity for i >= n
-template <int L>
-__global__ void to_montgomery_kernel(const int32_t* __restrict__ pts, long long n,
-                                     long long n_pad, uint32_t* __restrict__ pm,
-                                     FieldConsts<L> fc) {
-  constexpr int NW = L / 2;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < 3 * n_pad;
-       i += (long long)gridDim.x * blockDim.x) {
-    uint32_t x[NW], y[NW];
-    if (i < 3 * n) {
-      load_elem<L>(x, pts + i * L);
-    } else {
-#pragma unroll
-      for (int j = 0; j < NW; ++j) x[j] = (j == 0 && i % 3 == 1) ? 1u : 0u;  // (0 : 1 : 0)
-    }
-    mont_mul<L>(y, x, fc.r2, fc);  // x*R
-    ecw::store_words<NW>(pm + i * NW, y);
-  }
-}
 
 // A bucket slot of 3*L words out of Montgomery form, in place: its packed
 // Montgomery words (the first 3*NW) become the canonical 16-bit limbs of
@@ -98,147 +102,20 @@ __device__ __forceinline__ void bucket_out(uint32_t* b, const FieldConsts<L>& fc
   }
 }
 
-// The 12-word instance stages each step's bucket and point in shared memory
-// (ecw::rcb_add_staged); the 8-word one keeps them in registers.
+// The 12-word instance stages its repeat hits in shared memory
 template <int L>
 constexpr bool acc_staged = L == 24;
 
-template <int L>
-__global__ void __launch_bounds__(ACC_THREADS)
-    bucket_accumulate_kernel(const uint32_t* __restrict__ pm, const int16_t* __restrict__ digits,
-                             int32_t* __restrict__ out, int G, int BW, int K, long long S, int b3,
-                             FieldConsts<L> fc) {
-  constexpr int NW = L / 2;
-  constexpr int SLOT = 3 * L;  // words per bucket slot of the output
-  const long long row = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (row >= (long long)G * BW) return;
-  const int g = (int)(row % G);
-  const int bw = (int)(row / G);
-  const long long n_pad = S * G;
-  uint32_t* buckets = reinterpret_cast<uint32_t*>(out) + ((long long)g * BW + bw) * K * SLOT;
-  const int16_t* drow = digits + (long long)bw * n_pad + g;
-  const uint32_t* pcol = pm + (long long)g * 3 * NW;
-
-  uint32_t zero[NW];
-#pragma unroll
-  for (int j = 0; j < NW; ++j) zero[j] = 0u;
-  for (int k = 0; k < K; ++k) {  // the identity (0 : 1 : 0) in Montgomery form
-    ecw::store_words<NW>(buckets + k * SLOT, zero);
-    ecw::store_words<NW>(buckets + k * SLOT + NW, fc.rm);
-    ecw::store_words<NW>(buckets + k * SLOT + 2 * NW, zero);
-  }
-
-  if constexpr (acc_staged<L>) {
-    // this thread's bucket (values 0-2) and point (3-5), and rcb_add_staged's
-    // scratch value
-    __shared__ uint4 stage[ecw::STAGED_VALUES * (NW / 4) * ACC_THREADS];
-    const ecw::Staged<NW> st{stage + threadIdx.x, ACC_THREADS};
-    for (long long j = 0; j < S; ++j) {
-      const int code = drow[j * G];
-      const int k = code < 0 ? ~code : code;
-      const uint4* q = reinterpret_cast<const uint4*>(pcol + j * G * 3 * NW);
-      uint32_t* b = buckets + k * SLOT;
-      const uint4* bv = reinterpret_cast<const uint4*>(b);
-#pragma unroll
-      for (int i = 0; i < 3 * (NW / 4); ++i) {
-        ptx::st_shared_v4(st.quad(0, i), bv[i]);
-        ptx::st_shared_v4(st.quad(3, i), q[i]);
-      }
-      if (code < 0) {  // -P = (X : -Y : Z)
-        uint32_t y[NW];
-        st.load(4, y);
-        ecw::neg_canon<L>(y, y, fc);
-        st.store(4, y);
-      }
-      ecw::rcb_add_staged<L>(st, b3, fc, [&](int c, const uint32_t* w) {
-        ecw::store_words<NW>(b + c * NW, w);
-      });
-    }
-  } else {
-    for (long long j = 0; j < S; ++j) {
-      const int code = drow[j * G];
-      const int k = code < 0 ? ~code : code;
-      const uint32_t* q = pcol + j * G * 3 * NW;
-      uint32_t X2[NW], Y2[NW], Z2[NW];
-      ecw::load_words<NW>(X2, q);
-      ecw::load_words<NW>(Y2, q + NW);
-      ecw::load_words<NW>(Z2, q + 2 * NW);
-      if (code < 0) ecw::neg_canon<L>(Y2, Y2, fc);  // -P = (X : -Y : Z)
-      uint32_t* b = buckets + k * SLOT;
-      uint32_t X1[NW], Y1[NW], Z1[NW];
-      ecw::load_words<NW>(X1, b);
-      ecw::load_words<NW>(Y1, b + NW);
-      ecw::load_words<NW>(Z1, b + 2 * NW);
-      uint32_t X3[NW], Y3[NW], Z3[NW];
-      ecw::rcb_add<L>(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2, b3, fc);
-      ecw::store_words<NW>(b, X3);
-      ecw::store_words<NW>(b + NW, Y3);
-      ecw::store_words<NW>(b + 2 * NW, Z3);
-    }
-  }
-
-  for (int k = 0; k < K; ++k) bucket_out<L>(buckets + k * SLOT, fc);
-}
-
-template <int L>
-int launch_accumulate(const int32_t* points, long long n, uint32_t* pm, const int16_t* digits,
-                      int32_t* out, int G, int BW, int K, long long S, int b3,
-                      const uint32_t* consts, cudaStream_t s) {
-  FieldConsts<L> fc = consts_from_host<L>(consts);
-  const long long n_pad = S * G;
-  long long want = (3 * n_pad + 255) / 256;
-  int blocks = (int)(want < (1LL << 20) ? want : (1LL << 20));
-  to_montgomery_kernel<L><<<blocks, 256, 0, s>>>(points, n, n_pad, pm, fc);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  const long long rows = (long long)G * BW;
-  bucket_accumulate_kernel<L><<<(unsigned)((rows + ACC_THREADS - 1) / ACC_THREADS), ACC_THREADS,
-                                0, s>>>(pm, digits, out, G, BW, K, S, b3, fc);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The affine instance (L = 16): points with Z = 1
-//
-// What the projective form spends that this one does not:
-// * every step a complete add (12 products, 9 reductions).  Here the
-//   points are (x, y, 1), a Z = 1 copy of the key's points made once per
-//   key, so a step into a bucket that already holds a point is a mixed add
-//   (ecw::rcb_add_mixed, 11 products and 8 reductions; the pre-kernel packs
-//   only x and y, 64 B per point, and Z2 is never loaded); a step into a
-//   bucket that still holds the identity is a first hit, (x y : y^2 : y)
-//   (ecw::rcb_first_hit, 2 products, no bucket read); and a padding step
-//   (j*G + g >= n, the identity with digit 0) adds the identity,
-//   (X1 Y1 : Y1^2 : Y1 Z1) (ecw::rcb_add_identity, 3 products), or nothing
-//   to a bucket still at the identity.  All three give rcb_add's canonical
-//   words, so the buckets are bit for bit the projective form's;
-// * the init pass writing K identity slots per row: a mask of K bits per
-//   thread in shared memory says which buckets were hit, and the buckets
-//   never hit are written as the canonical identity at the end.
-// Registers: ptxas gives this kernel 168 and no spills at 3 blocks of 128
-// per SM.  Held to 128 for 4 blocks it spills 76 B and took 8-10% longer
-// at every batch; and at the prover's G's a batch of one fills only about
-// 2 blocks per SM (PERF.md).
-//
-// A warp's 32 rows hit their buckets' first time at different steps, and a
-// warp runs a branch's two sides one after the other, so first hits taken
-// where they fall would cost a mixed add's time almost every step.  The
-// first hits of a row commute with its other steps (no earlier step touched
-// that bucket), so they run in a pass of their own ahead of the rest:
-// pass 1 walks the row and writes each bucket's first hit; pass 2 walks it
-// again and adds every later hit.  In each pass a thread runs ahead over
-// the steps the pass skips (a digit and a mask bit each) to its next step
-// of work, so the warp's threads meet at the products.  Then the padding
-// steps, the row's last, in order.  Each pass loads the next step's digit
-// before the current step's products.  Without pass 1 (an init pass, every
-// step a mixed add) the kernel took 6-16% longer (PERF.md).
-// ---------------------------------------------------------------------------
-
 // the two K-bit masks of a block's threads, in bytes
-inline size_t affine_mask_bytes(int K) {
+inline size_t mask_bytes(int K) {
   return 2 * (size_t)((K + 31) / 32) * ACC_THREADS * sizeof(uint32_t);
 }
-constexpr size_t ACC_AFFINE_MASK_MAX = 48 * 1024;  // static shared memory without an opt-in
+// the staged values of the 12-word instance's repeat hits, in bytes
+template <int L>
+constexpr size_t stage_bytes =
+    acc_staged<L> ? (size_t)ecw::MIXED_STAGED_VALUES * (L / 2) * sizeof(uint32_t) * ACC_THREADS : 0;
+// shared memory of a block without an opt-in: the masks and the stage
+constexpr size_t ACC_SMEM_MAX = 48 * 1024;
 
 // one thread's K-bit mask: word w at base[w * ACC_THREADS], so a warp's
 // 32 threads touch 32 banks whatever their buckets
@@ -272,32 +149,44 @@ __global__ void to_montgomery_xy_kernel(const int32_t* __restrict__ pts, long lo
   }
 }
 
+// The 12-word instance's repeat hit: bucket b plus the point (x, y) at q,
+// negated for a negative digit, written back to b
 template <int L>
-__global__ void __launch_bounds__(ACC_THREADS, 3)
-    bucket_accumulate_affine_kernel(const uint32_t* __restrict__ pa,
-                                    const int16_t* __restrict__ digits, int32_t* __restrict__ out,
-                                    long long n, int G, int BW, int K, long long S, int b3,
-                                    FieldConsts<L> fc) {
+__device__ __forceinline__ void mixed_step_staged(uint32_t* b, const uint32_t* q, bool negate,
+                                                  int b3, const FieldConsts<L>& fc) {
+  constexpr int NW = L / 2;
+  __shared__ uint4 stage[ecw::MIXED_STAGED_VALUES * (NW / 4) * ACC_THREADS];
+  const ecw::Staged<NW> st{stage + threadIdx.x, ACC_THREADS};
+  const uint4* bv = reinterpret_cast<const uint4*>(b);
+  const uint4* xv = reinterpret_cast<const uint4*>(q);
+#pragma unroll
+  for (int i = 0; i < 3 * (NW / 4); ++i) ptx::st_shared_v4(st.quad(0, i), bv[i]);
+#pragma unroll
+  for (int i = 0; i < NW / 4; ++i) ptx::st_shared_v4(st.quad(3, i), xv[i]);
+  uint32_t y[NW];
+  ecw::load_words<NW>(y, q + NW);
+  if (negate) ecw::neg_canon<L>(y, y, fc);  // -P = (x : -y : 1)
+  st.store(4, y);
+  ecw::rcb_add_mixed_staged<L>(st, b3, fc, [&](int c, const uint32_t* w) {
+    ecw::store_words<NW>(b + c * NW, w);
+  });
+}
+
+// One row's steps into its buckets, in Montgomery form: pass 1, pass 2 and
+// the padding steps (see the note above)
+template <int L>
+__device__ __forceinline__ void accumulate_row(const uint32_t* __restrict__ pa,
+                                               const int16_t* __restrict__ digits,
+                                               uint32_t* buckets, long long n, int g, int bw,
+                                               int G, long long S, int b3, const BucketMask& hit,
+                                               const BucketMask& seen, const FieldConsts<L>& fc) {
   constexpr int NW = L / 2;
   constexpr int SLOT = 3 * L;
-  extern __shared__ uint32_t masks[];
-  const long long row = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (row >= (long long)G * BW) return;
-  const int g = (int)(row % G);
-  const int bw = (int)(row / G);
-  uint32_t* buckets = reinterpret_cast<uint32_t*>(out) + ((long long)g * BW + bw) * K * SLOT;
   const int16_t* drow = digits + (long long)bw * S * G + g;
   const uint32_t* prow = pa + (long long)g * 2 * NW;
   const long long pstep = (long long)G * 2 * NW;
   // steps 0 .. steps-1 have a point (j*G + g < n); the rest are padding
   const long long steps = n > g ? (n - g + G - 1) / G : 0;
-  const int words = (K + 31) / 32;
-  const BucketMask hit{masks + threadIdx.x};                        // written in pass 1
-  const BucketMask seen{masks + words * ACC_THREADS + threadIdx.x};  // written in pass 2
-  for (int w = 0; w < words; ++w) {
-    hit.base[w * ACC_THREADS] = 0u;
-    seen.base[w * ACC_THREADS] = 0u;
-  }
   auto mag = [](int code) { return code < 0 ? ~code : code; };
   auto digit = [&](long long j) { return j < steps ? (int)drow[j * G] : 0; };
   auto load_point = [&](uint32_t x[NW], uint32_t y[NW], long long j, int code) {
@@ -342,15 +231,19 @@ __global__ void __launch_bounds__(ACC_THREADS, 3)
       if (j >= steps) break;
       const int next = digit(j + 1);
       uint32_t* b = buckets + k * SLOT;
-      uint32_t X1[NW], Y1[NW], Z1[NW], x[NW], y[NW], X3[NW], Y3[NW], Z3[NW];
-      ecw::load_words<NW>(X1, b);
-      ecw::load_words<NW>(Y1, b + NW);
-      ecw::load_words<NW>(Z1, b + 2 * NW);
-      load_point(x, y, j, code);
-      ecw::rcb_add_mixed<L>(X3, Y3, Z3, X1, Y1, Z1, x, y, b3, fc);
-      ecw::store_words<NW>(b, X3);
-      ecw::store_words<NW>(b + NW, Y3);
-      ecw::store_words<NW>(b + 2 * NW, Z3);
+      if constexpr (acc_staged<L>) {
+        mixed_step_staged<L>(b, prow + j * pstep, code < 0, b3, fc);
+      } else {
+        uint32_t X1[NW], Y1[NW], Z1[NW], x[NW], y[NW], X3[NW], Y3[NW], Z3[NW];
+        ecw::load_words<NW>(X1, b);
+        ecw::load_words<NW>(Y1, b + NW);
+        ecw::load_words<NW>(Z1, b + 2 * NW);
+        load_point(x, y, j, code);
+        ecw::rcb_add_mixed<L>(X3, Y3, Z3, X1, Y1, Z1, x, y, b3, fc);
+        ecw::store_words<NW>(b, X3);
+        ecw::store_words<NW>(b + NW, Y3);
+        ecw::store_words<NW>(b + 2 * NW, Z3);
+      }
       code = next;
       ++j;
     }
@@ -369,23 +262,74 @@ __global__ void __launch_bounds__(ACC_THREADS, 3)
     ecw::store_words<NW>(b + NW, Y3);
     ecw::store_words<NW>(b + 2 * NW, Z3);
   }
-  // out: the buckets hit from Montgomery form, the others the identity
-  for (int k = 0; k < K; ++k) {
-    uint32_t* b = buckets + k * SLOT;
-    if (hit.test(k)) {
-      bucket_out<L>(b, fc);
-    } else {
-      int4* v = reinterpret_cast<int4*>(b);
+}
+
+// bucket slot b out: from Montgomery form if its bucket was hit, else the
+// identity
+template <int L>
+__device__ __forceinline__ void slot_out(uint32_t* b, bool hit, const FieldConsts<L>& fc) {
+  if (hit) {
+    bucket_out<L>(b, fc);
+  } else {
+    int4* v = reinterpret_cast<int4*>(b);
 #pragma unroll
-      for (int q = 0; q < SLOT / 4; ++q) v[q] = make_int4(q == L / 4 ? 1 : 0, 0, 0, 0);
+    for (int q = 0; q < 3 * L / 4; ++q) v[q] = make_int4(q == L / 4 ? 1 : 0, 0, 0, 0);
+  }
+}
+
+// the kernel's name is what device traces of K4a match (it takes affine
+// points, Z = 1)
+template <int L>
+__global__ void __launch_bounds__(ACC_THREADS, 3)
+    bucket_accumulate_affine_kernel(const uint32_t* __restrict__ pa,
+                                    const int16_t* __restrict__ digits, int32_t* __restrict__ out,
+                                    long long n, int G, int BW, int K, long long S, int b3,
+                                    FieldConsts<L> fc) {
+  constexpr int SLOT = 3 * L;
+  extern __shared__ uint32_t masks[];
+  const long long rows = (long long)G * BW;
+  const long long row = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  // the 8-word instance's lanes work alone; the 12-word one's meet at its out pass
+  if constexpr (!acc_staged<L>) {
+    if (row >= rows) return;
+  }
+  auto row_buckets = [&](long long r) {
+    return reinterpret_cast<uint32_t*>(out) + ((r % G) * BW + r / G) * K * SLOT;
+  };
+  const int words = (K + 31) / 32;
+  const BucketMask hit{masks + threadIdx.x};                        // written in pass 1
+  const BucketMask seen{masks + words * ACC_THREADS + threadIdx.x};  // written in pass 2
+  for (int w = 0; w < words; ++w) {
+    hit.base[w * ACC_THREADS] = 0u;
+    seen.base[w * ACC_THREADS] = 0u;
+  }
+  if (row < rows)
+    accumulate_row<L>(pa, digits, row_buckets(row), n, (int)(row % G), (int)(row / G), G, S, b3,
+                      hit, seen, fc);
+  if constexpr (acc_staged<L>) {
+    // out, the warp's rows one after another: lane i takes buckets i,
+    // i + 32, ... of the row, so that the warp reads and writes neighbouring
+    // slots (at 12 words 3-11% off the kernel, at 8 words 1-2% on it:
+    // PERF.md)
+    __syncwarp();
+    const int lane = threadIdx.x & 31;
+    for (int r = 0; r < 32; ++r) {
+      const long long rr = row - lane + r;
+      if (rr >= rows) break;
+      uint32_t* rb = row_buckets(rr);
+      const BucketMask rhit{masks + (threadIdx.x - lane + r)};
+      for (int k = lane; k < K; k += 32) slot_out<L>(rb + k * SLOT, rhit.test(k), fc);
     }
+  } else {
+    uint32_t* buckets = row_buckets(row);
+    for (int k = 0; k < K; ++k) slot_out<L>(buckets + k * SLOT, hit.test(k), fc);
   }
 }
 
 template <int L>
-int launch_accumulate_affine(const int32_t* points, long long n, uint32_t* pa,
-                             const int16_t* digits, int32_t* out, int G, int BW, int K,
-                             long long S, int b3, const uint32_t* consts, cudaStream_t s) {
+int launch_accumulate(const int32_t* points, long long n, uint32_t* pa, const int16_t* digits,
+                      int32_t* out, int G, int BW, int K, long long S, int b3,
+                      const uint32_t* consts, cudaStream_t s) {
   FieldConsts<L> fc = consts_from_host<L>(consts);
   if (n > 0) {
     long long want = (2 * n + 255) / 256;
@@ -396,7 +340,7 @@ int launch_accumulate_affine(const int32_t* points, long long n, uint32_t* pa,
   }
   const long long rows = (long long)G * BW;
   bucket_accumulate_affine_kernel<L>
-      <<<(unsigned)((rows + ACC_THREADS - 1) / ACC_THREADS), ACC_THREADS, affine_mask_bytes(K),
+      <<<(unsigned)((rows + ACC_THREADS - 1) / ACC_THREADS), ACC_THREADS, mask_bytes(K),
          s>>>(pa, digits, out, n, G, BW, K, S, b3, fc);
   return (int)cudaGetLastError();
 }
@@ -414,52 +358,34 @@ int occupancy(Kernel kernel, size_t smem, int* blocks, int* registers) {
 }  // namespace zk
 
 // resident blocks of ACC_THREADS threads per SM, and registers per thread,
-// of the accumulation kernel at L limbs
+// of the accumulation kernel at L limbs, with the masks of c = 8 (K = 129),
+// the window of every commit above 2^12 points
 extern "C" int zk_ec_bucket_accumulate_occupancy(int L, int* blocks, int* registers) {
-  if (L == 16) return zk::occupancy(zk::bucket_accumulate_kernel<16>, 0, blocks, registers);
-  if (L == 24) return zk::occupancy(zk::bucket_accumulate_kernel<24>, 0, blocks, registers);
-  return (int)cudaErrorInvalidValue;
-}
-
-// the same for the affine instance, with the masks of c = 8 (K = 129), the
-// window of every commit above 2^12 points
-extern "C" int zk_ec_bucket_accumulate_affine_occupancy(int L, int* blocks, int* registers) {
   if (L == 16)
-    return zk::occupancy(zk::bucket_accumulate_affine_kernel<16>, zk::affine_mask_bytes(129),
-                         blocks, registers);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int zk_ec_bucket_accumulate(int L, const void* points, long long n, void* pm,
-                                       const void* digits, void* out, int G, int BW, int K,
-                                       long long S, int b3, const unsigned* consts,
-                                       void* stream) {
-  if (n < 0 || G < 1 || BW < 1 || K < 1 || S < 1 || n > S * G || b3 < 0 || b3 > 255)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int32_t* pts = static_cast<const int32_t*>(points);
-  uint32_t* pmw = static_cast<uint32_t*>(pm);
-  const int16_t* dg = static_cast<const int16_t*>(digits);
-  int32_t* o = static_cast<int32_t*>(out);
-  const uint32_t* hc = reinterpret_cast<const uint32_t*>(consts);
-  if (L == 16) return zk::launch_accumulate<16>(pts, n, pmw, dg, o, G, BW, K, S, b3, hc, s);
-  if (L == 24) return zk::launch_accumulate<24>(pts, n, pmw, dg, o, G, BW, K, S, b3, hc, s);
+    return zk::occupancy(zk::bucket_accumulate_affine_kernel<16>, zk::mask_bytes(129), blocks,
+                         registers);
+  if (L == 24)
+    return zk::occupancy(zk::bucket_accumulate_affine_kernel<24>, zk::mask_bytes(129), blocks,
+                         registers);
   return (int)cudaErrorInvalidValue;
 }
 
 // points (n, 3, L) with Z = 1 (Z is not read); pa scratch of 2*n*L/2 words
-extern "C" int zk_ec_bucket_accumulate_affine(int L, const void* points, long long n, void* pa,
-                                              const void* digits, void* out, int G, int BW, int K,
-                                              long long S, int b3, const unsigned* consts,
-                                              void* stream) {
+extern "C" int zk_ec_bucket_accumulate(int L, const void* points, long long n, void* pa,
+                                       const void* digits, void* out, int G, int BW, int K,
+                                       long long S, int b3, const unsigned* consts,
+                                       void* stream) {
   if (n < 0 || G < 1 || BW < 1 || K < 1 || S < 1 || n > S * G || b3 < 0 || b3 > 255 ||
-      zk::affine_mask_bytes(K) > zk::ACC_AFFINE_MASK_MAX)
+      (L != 16 && L != 24))
     return (int)cudaErrorInvalidValue;
+  const size_t stage = L == 24 ? zk::stage_bytes<24> : zk::stage_bytes<16>;
+  if (zk::mask_bytes(K) + stage > zk::ACC_SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const uint32_t* hc = reinterpret_cast<const uint32_t*>(consts);
-  if (L == 16)
-    return zk::launch_accumulate_affine<16>(
-        static_cast<const int32_t*>(points), n, static_cast<uint32_t*>(pa),
-        static_cast<const int16_t*>(digits), static_cast<int32_t*>(out), G, BW, K, S, b3, hc, s);
-  return (int)cudaErrorInvalidValue;
+  const int32_t* pts = static_cast<const int32_t*>(points);
+  uint32_t* paw = static_cast<uint32_t*>(pa);
+  const int16_t* dg = static_cast<const int16_t*>(digits);
+  int32_t* o = static_cast<int32_t*>(out);
+  if (L == 16) return zk::launch_accumulate<16>(pts, n, paw, dg, o, G, BW, K, S, b3, hc, s);
+  return zk::launch_accumulate<24>(pts, n, paw, dg, o, G, BW, K, S, b3, hc, s);
 }

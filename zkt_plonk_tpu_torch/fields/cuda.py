@@ -261,7 +261,8 @@ def binop(spec: FieldSpec, op: str, a: torch.Tensor, b: torch.Tensor) -> torch.T
 def pow_chain(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
     """a^exponent elementwise for a fixed exponent >= 1; maps 0 to 0.  On
     the card the kernel runs lazily (values below 2p) where 4p < R and in
-    its strict mode (values below p) where only 2p < R (BLS12-381's Fr)."""
+    its strict mode (values below p) where only 2p < R (BLS12-381's Fr);
+    at L = 24 (the BLS12 base fields, 4p < R) lazily only."""
     _check_operand(spec, a, "a")
     if exponent < 1:
         raise ValueError("pow_chain needs an exponent >= 1")
@@ -286,6 +287,7 @@ def pow_chain(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
         (_cuda.ctypes.c_ubyte * max(1, nsteps))(*[d for _, d in sched.steps]),
         int(strict), consts, _cuda.stream_ptr(a),
     )
-    _cuda.check(err, "fp_pow_chain")
-    _cuda.count(_cuda.instance("fp_pow_chain", strict=strict))
+    key = _cuda.instance("fp_pow_chain", spec.n_limbs, strict=strict)
+    _cuda.check(err, key)
+    _cuda.count(key)
     return out

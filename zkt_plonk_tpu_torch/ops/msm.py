@@ -10,9 +10,10 @@ the window fold on the host — with the bucket layout chosen for the card:
 * the accumulation is kernel K4a (``bucket_accumulate``), one launch per
   batch: a thread owns one bucket row (g, b*W + w) and walks the S steps
   itself, so the per-step gathers and scatters stay inside the kernel;
-* a commitment key's commits run over a Z = 1 copy of its points at L = 16
-  (``commit_points``), K4a's affine instance: mixed adds, first hits and
-  padding steps as two or three products;
+* K4a takes points with Z = 1: a commitment key's commits run over a
+  Z = 1 copy of its points made once (``commit_points``), a bare points
+  tensor is normalized on each call (``as_commit_points``); so a step is a
+  mixed add, a bucket's first hit two products and a padding step three;
 * the bucket tensor is laid out group-major (G, B*W, K) so every merge
   step adds two contiguous halves; the merges and the suffix scan are K4;
 * digits are computed in bulk before the accumulation, as int16 codes.
@@ -89,27 +90,26 @@ def msm_window_size(n: int, c: int = 0) -> int:
 
 
 # Resident blocks per SM of K4a's ACC_THREADS-thread blocks on an H100's
-# 132 SMs, for the instance a key's commits run at each limb count (the
-# affine one at L = 16, the staged one at L = 24), from ptxas's register
-# count of each (PERF.md).  The projective L = 16 instance, which bare MSM
-# callers run, holds ACC_PROJECTIVE_L16_BLOCKS; the rule reads the affine
-# one's count for both.  chip_smoke.py holds both against the card's
+# 132 SMs, at each limb count, from ptxas's register count of each
+# instance (PERF.md).  chip_smoke.py holds the table against the card's
 # occupancy call (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a table
 # rather than the call, so that the CPU path picks the same G as the card.
 ACC_THREADS = 128
 ACC_SMS = 132
-ACC_RESIDENT_BLOCKS = {16: 3, 24: 4}
-ACC_PROJECTIVE_L16_BLOCKS = 3
-# the affine instance keeps two K-bit masks per thread in shared memory,
-# within 48 KB a block: windows up to c = 11 (K = 1025)
-ACC_AFFINE_MAX_C = 11
+ACC_RESIDENT_BLOCKS = {16: 3, 24: 3}
+# K4a keeps two K-bit masks per thread in shared memory, within 48 KB a
+# block beside the L = 24 instance's 36 KB of staged values: windows up to
+# c = 11 (K = 1025) at L = 16, c = 9 (K = 257) at L = 24
+ACC_MAX_C = {16: 11, 24: 9}
 # The G rule aims at this share of an instance's resident bucket rows, and
 # at no more than ACC_ROWS_MAX rows.  From the sweeps of
-# tools/sweep_msm_groups.py (PERF.md): the 8-word instance (3 blocks, 50,688
-# rows) and the 12-word one at 4 blocks (67,584 rows) are fastest between
-# 32,768 and 49,152 rows at every batch size; the 12-word one at 2 blocks
-# (33,792 rows) was fastest at 81% of them.  Past that, more rows only add
-# per-row work and group-merge adds.
+# tools/sweep_msm_groups.py (PERF.md): K4a's instances of earlier designs
+# were fastest between 32,768 and 49,152 rows at every batch size, and at
+# 81% of the rows of a 12-word instance at 2 blocks (33,792 rows).  Both
+# instances now run at 3 blocks (50,688 rows), so the 40,960-row cap binds
+# at both widths; the sweep at L = 24 found the rule's G within 0-8% of the
+# best G at B = 1, 2, 3 and 6.  Past that, more rows only add per-row work
+# and group-merge adds.
 ACC_ROW_SHARE = 0.81
 ACC_ROWS_MAX = 40960
 
@@ -180,26 +180,21 @@ def bucket_accumulate_plain(
 
 
 def bucket_accumulate(
-    spec: FieldSpec, b3: ec.B3, points: torch.Tensor, digits: torch.Tensor, G: int, c: int,
-    affine: bool = False,
+    spec: FieldSpec, b3: ec.B3, points: torch.Tensor, digits: torch.Tensor, G: int, c: int
 ) -> torch.Tensor:
     """Grouped serial bucket accumulation -> (G, BW, K, 3, L) canonical
     limbs, K = 2^(c-1) + 1.
 
-    points (n, 3, L) int32; digits (BW, n_pad) int16 codes of
+    points (n, 3, L) int32 with Z = 1; digits (BW, n_pad) int16 codes of
     ``signed_digit_codes`` (one row per scalar and window), zero-padded to
     n_pad = S*G >= n.  Group g owns points g, g+G, ... in step order; a
     negative digit adds the negated point; points past n are the identity.
     Digit-0 buckets collect junk (including the identity padding) and are
     never weighted.  Codes must lie in [-K, K), as ``digit_rows`` makes
-    them; only the CPU path checks, since a check on the card would make
-    the host wait for it on every batch.  Kernel K4a on the card, the plain
-    version on the CPU.
-
-    ``affine=True`` takes points with Z = 1 (``commit_points``) and runs
-    K4a's affine instance (L = 16, c <= ACC_AFFINE_MAX_C): the same
-    buckets, bit for bit.  Its kernel never reads Z; the CPU path raises on
-    a point whose Z is not 1, for the same reason as the digit codes.
+    them, and Z must be 1 (``commit_points``), since the kernel never reads
+    it; only the CPU path checks both, since a check on the card would make
+    the host wait for it on every batch.  Windows up to c = ACC_MAX_C[L].
+    Kernel K4a on the card, the plain version on the CPU.
     """
     L = spec.n_limbs
     if points.dtype != torch.int32 or points.dim() != 3 or tuple(points.shape[1:]) != (3, L):
@@ -211,16 +206,16 @@ def bucket_accumulate(
     K = (1 << (c - 1)) + 1
     if G < 1 or n_pad % G or n_pad < n or n_pad == 0:
         raise ValueError(f"digits cover {n_pad} points: need a multiple of G={G} and >= {n}")
-    key = _cuda.instance("ec_bucket_accumulate", L, affine=affine)
-    if affine and c > ACC_AFFINE_MAX_C:
-        raise ValueError(f"{key} takes windows up to c = {ACC_AFFINE_MAX_C}, got {c}")
+    key = _cuda.instance("ec_bucket_accumulate", L)
+    if c > ACC_MAX_C[L]:
+        raise ValueError(f"{key} takes windows up to c = {ACC_MAX_C[L]}, got {c}")
     _cuda.count_work("ec_bucket_adds", BW * n)
     if points.device.type == "cpu" and digits.device.type == "cpu":
         lo, hi = torch.aminmax(digits)
         if hi.item() >= K or ~lo.item() >= K:
             raise ValueError(f"digit codes out of range for K={K} buckets")
         z = points[:, 2]
-        if affine and not bool((z[:, 0] == 1).all() and (z[:, 1:] == 0).all()):
+        if not bool((z[:, 0] == 1).all() and (z[:, 1:] == 0).all()):
             raise ValueError(f"{key} needs points with Z = 1 (commit_points)")
         return bucket_accumulate_plain(spec, b3, points, digits, G, c)
     if points.device != digits.device or points.device.type != "cuda":
@@ -230,13 +225,9 @@ def bucket_accumulate(
     points = points.contiguous()
     digits = digits.contiguous()
     out = torch.empty((G, BW, K, 3, L), dtype=torch.int32, device=points.device)
-    # the points in packed Montgomery words: (x, y) of the n points, or all
-    # three coordinates of the n_pad (identity padding)
-    pm_shape = (n, 2, L // 2) if affine else (n_pad, 3, L // 2)
-    pm = torch.empty(pm_shape, dtype=torch.int32, device=points.device)
-    lib = _cuda.lib("ec_bucket_accumulate")
-    fn = lib.zk_ec_bucket_accumulate_affine if affine else lib.zk_ec_bucket_accumulate
-    err = fn(
+    # (x, y) of the points in packed Montgomery words
+    pm = torch.empty((n, 2, L // 2), dtype=torch.int32, device=points.device)
+    err = _cuda.lib("ec_bucket_accumulate").zk_ec_bucket_accumulate(
         L, points.data_ptr(), n, pm.data_ptr(), digits.data_ptr(), out.data_ptr(),
         G, BW, K, n_pad // G, b3.value, _cuda.ec_field_consts(spec), _cuda.stream_ptr(points),
     )
@@ -256,26 +247,26 @@ def digit_rows(scalars: torch.Tensor, c: int, fr_bits: int, G: int) -> torch.Ten
 
 
 class CommitPoints(NamedTuple):
-    """An MSM's (n, 3, L) points, and whether they are a Z = 1 copy
-    (``commit_points``), which K4a's affine instance takes.  The MSM
-    functions below take one wherever they take points; a bare tensor is
-    projective."""
+    """An MSM's (n, 3, L) points with Z = 1, as K4a takes them
+    (``commit_points``).  The MSM functions below take one wherever they
+    take points; a bare tensor is any projective points."""
 
     points: torch.Tensor
-    affine: bool
 
 
-def as_commit_points(points) -> CommitPoints:
-    """A CommitPoints as it is; a bare (n, 3, L) tensor as projective points."""
-    return points if isinstance(points, CommitPoints) else CommitPoints(points, False)
+def as_commit_points(spec: FieldSpec, points) -> CommitPoints:
+    """A CommitPoints as it is; a bare (n, 3, L) tensor normalized to its
+    Z = 1 form (``ec.normalize``, which refuses the identity), on every
+    call."""
+    return points if isinstance(points, CommitPoints) else CommitPoints(ec.normalize(spec, points))
 
 
 def _accumulate(fq_spec, b3, points, scalars, fr_bits, c, G):
     """Grouped serial bucket accumulation of B scalar vectors (B, n, Lr)
     over points (n, 3, L) or a CommitPoints -> (G, B*W, K, 3, L)."""
-    pts = as_commit_points(points)
+    pts = as_commit_points(fq_spec, points)
     digits = digit_rows(scalars, c, fr_bits, G)
-    return bucket_accumulate(fq_spec, b3, pts.points, digits, G, c, affine=pts.affine)
+    return bucket_accumulate(fq_spec, b3, pts.points, digits, G, c)
 
 
 def _tree_reduce_points(fq_spec, b3, pts: torch.Tensor) -> torch.Tensor:
@@ -331,7 +322,7 @@ def msm_totals(
     """
     batched = scalars.dim() == 3
     sc = scalars if batched else scalars[None]
-    pts = as_commit_points(points)
+    pts = as_commit_points(fq_spec, points)
     n = pts.points.shape[0]
     c = msm_window_size(n, c)
     W = num_windows(fr_bits + 1, c)
@@ -367,20 +358,17 @@ def msm(fq_spec, Fq, b3, points, scalars, fr_bits: int, c: int = 0):
 
 
 def commit_points(spec: FieldSpec, points: torch.Tensor) -> CommitPoints:
-    """A key's (N, 3, L) points as its commits take them: at L = 16 a Z = 1
-    copy (``ec.normalize``), for K4a's affine instance; at L = 24 the points
-    as they are.  Each key builds it once (``kzg.CommitterKey.msm_points``,
-    ``ipa.CommitterKeyIPA.msm_points``) and never serializes it.  The copy
-    changes the bucket words, not the points, so the commitments are the
-    same.  On the card it waits for the copy's kernels, so that a committer
-    on another CUDA stream (``parallel.BatchProver``'s rows) may read it at
-    once."""
-    if spec.n_limbs != 16:
-        return CommitPoints(points, False)
+    """A key's (N, 3, L) points as its commits take them: a Z = 1 copy
+    (``ec.normalize``), for K4a.  Each key builds it once
+    (``kzg.CommitterKey.msm_points``, ``ipa.CommitterKeyIPA.msm_points``)
+    and never serializes it.  The copy changes the bucket words, not the
+    points, so the commitments are the same.  On the card it waits for the
+    copy's kernels, so that a committer on another CUDA stream
+    (``parallel.BatchProver``'s rows) may read it at once."""
     copy = ec.normalize(spec, points)
     if copy.device.type == "cuda":
         torch.cuda.current_stream(copy.device).synchronize()
-    return CommitPoints(copy, True)
+    return CommitPoints(copy)
 
 
 def commit_rows(ctx, b3, points, polys) -> list:
@@ -392,10 +380,9 @@ def commit_rows(ctx, b3, points, polys) -> list:
     m = stacked.shape[1]
     c = msm_window_size(m)
     fr_bits = ctx.curve.fr.modulus.bit_length()
-    pts = as_commit_points(points)
-    pts = pts._replace(points=pts.points[:m])
+    pts = points.points if isinstance(points, CommitPoints) else ec.normalize(ctx.fq_spec, points[:m])
     with profiling.section("msm"):
-        totals = msm_totals(ctx.fq_spec, b3, pts, stacked, fr_bits, c=c)
+        totals = msm_totals(ctx.fq_spec, b3, CommitPoints(pts[:m]), stacked, fr_bits, c=c)
     return fold_rows(ctx, totals, c)
 
 

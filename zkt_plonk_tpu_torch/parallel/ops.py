@@ -367,8 +367,9 @@ def pcommit_totals(fq_spec, b3, powers_shard, tail_points, coeffs_shard, tail_co
     align across ranks.  coeffs (B, m, L) with tails (B, 4, L), or unbatched.
     The points are tensors, or ``msm.CommitPoints`` of one key's copy.
     """
-    body, tail = msm_mod.as_commit_points(powers_shard), msm_mod.as_commit_points(tail_points)
-    points = body._replace(points=torch.cat([body.points, tail.points]))
+    body = msm_mod.as_commit_points(fq_spec, powers_shard)
+    tail = msm_mod.as_commit_points(fq_spec, tail_points)
+    points = msm_mod.CommitPoints(torch.cat([body.points, tail.points]))
     tc = tail_coeffs if mesh.d == 0 else torch.zeros_like(tail_coeffs)
     scalars = torch.cat([coeffs_shard, tc], dim=-2)
     return pmsm_totals(fq_spec, b3, points, scalars, fr_bits, mesh, c=c, groups=groups)

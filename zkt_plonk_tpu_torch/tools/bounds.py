@@ -33,6 +33,7 @@ EC_MIXED_OPS = 11 * PRODUCT_OPS + 8 * REDUCE_OPS
 # the same at 12 words (L = 24, the BLS12 base fields)
 MODMUL_OPS_24 = 2 * 12 * 12 + 12 + 2 * 12 * 12
 EC_ADD_OPS_24 = 12 * (2 * 12 * 12) + 9 * (12 + 2 * 12 * 12)
+EC_MIXED_OPS_24 = 11 * (2 * 12 * 12) + 8 * (12 + 2 * 12 * 12)
 
 
 def bound_ms(nbytes: float, int_ops: float):
@@ -49,8 +50,8 @@ def bound_ms(nbytes: float, int_ops: float):
 
 def step_counts(digits: torch.Tensor, n: int, G: int, K: int):
     """(first hits, repeat hits, padding steps into a bucket already hit)
-    over the rows of these (BW, n_pad) digit codes: what K4a's affine form
-    computes, two, eleven (with eight reductions) and three products each."""
+    over the rows of these (BW, n_pad) digit codes: what K4a computes, two,
+    eleven (with eight reductions) and three products each."""
     BW, n_pad = digits.shape
     S = n_pad // G
     dev = digits.device
@@ -65,23 +66,13 @@ def step_counts(digits: torch.Tensor, n: int, G: int, K: int):
     return first, repeat, padding
 
 
-def affine_bound(digits: torch.Tensor, n: int, G: int, K: int):
-    """K4a's affine form at L = 16: the work these digits need.  The points
-    read once (x and y, 2 x 32 bytes each), the digits read once and the
-    bucket tensor written once; the products of the step counts."""
+def accumulate_bound(digits: torch.Tensor, n: int, G: int, K: int, L: int = 16):
+    """K4a at L limbs: the work these digits need.  The points read once (x
+    and y, 2 x 2L bytes each), the digits read once and the bucket tensor
+    written once; the products of the step counts."""
     BW, n_pad = digits.shape
-    L = 16
+    mixed, modmul = (EC_MIXED_OPS_24, MODMUL_OPS_24) if L == 24 else (EC_MIXED_OPS, MODMUL_OPS)
     first, repeat, padding = step_counts(digits, n, G, K)
     nbytes = 2 * 2 * L * n + 2 * BW * n_pad + 3 * 4 * L * G * BW * K
-    ops = repeat * EC_MIXED_OPS + first * 2 * MODMUL_OPS + padding * 3 * MODMUL_OPS
+    ops = repeat * mixed + first * 2 * modmul + padding * 3 * modmul
     return bound_ms(nbytes, ops)
-
-
-def projective_bound(n: int, BW: int, G: int, K: int, L: int = 16):
-    """K4a's projective form: every one of the BW * n_pad steps a complete
-    add; the points (all three coordinates) and digits read once and the
-    bucket tensor written once."""
-    n_pad = -(-n // G) * G
-    add_ops = EC_ADD_OPS_24 if L == 24 else EC_ADD_OPS
-    nbytes = 3 * 4 * L * n + 2 * BW * n_pad + 3 * 4 * L * G * BW * K
-    return bound_ms(nbytes, BW * n_pad * add_ops)

@@ -65,7 +65,7 @@ from zkt_plonk_tpu_torch.utils.profiling import (
 # device kernel names of the MSM's EC kernels (csrc/ec_bucket_accumulate.cu,
 # csrc/ec_add_complete.cu), every instance, and of the NTT (csrc/ntt_col_pass.cu)
 KERNELS = {
-    "K4a": ("bucket_accumulate_kernel", "bucket_accumulate_affine_kernel"),
+    "K4a": ("bucket_accumulate_affine_kernel",),
     "K4": ("ec_add_complete_kernel", "ec_add_staged_kernel"),
     "K3": ("ntt_fused_pass_kernel",),
 }

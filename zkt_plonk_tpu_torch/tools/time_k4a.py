@@ -2,21 +2,20 @@
 
 Usage (from the repository root, on a machine with a card):
 
-    python -m zkt_plonk_tpu_torch.tools.time_k4a [--batches 1,2,3,6]
+    python -m zkt_plonk_tpu_torch.tools.time_k4a [--curve bn254] [--batches 1,2,3,6]
         [--log-n 18] [--reps 5] [--out time_k4a.json]
 
-At n = 2^log_n + 4 points (the 1024 points of a small SRS, Z = 1, repeated)
-and c = 8, for each batch of B random scalar vectors it times
-``msm.bucket_accumulate`` with the G of ``msm.group_count`` in both forms
-(the projective instance, and the affine one with ``affine=True``), the
-forms in turns, ``--reps`` times each, every call between two CUDA events;
-medians.  Beside each time the bound of the work the digits need
-(``bounds.affine_bound``: mixed adds, first hits and padding steps counted
-from the digits) and the bound that counts every step as a complete add
-(``bounds.projective_bound``, the projective form's).  Registers and
-spills come from ptxas (the build's log), resident blocks per SM from the
-library's occupancy exports (``_cuda.occupancy``).  The card's name and power limit are printed
-beside the numbers and the whole record is written as JSON to ``--out``.
+At n = 2^log_n + 4 points (the 1024 points of a small SRS of ``--curve``,
+Z = 1, repeated; K4a's L = 16 instance on BN254, its L = 24 one on the
+BLS12 curves) and c = 8, for each batch of B random scalar vectors it times
+``msm.bucket_accumulate`` with the G of ``msm.group_count``, ``--reps``
+times, every call between two CUDA events; medians.  Beside each time the
+bound of the work the digits need (``bounds.accumulate_bound``: mixed
+adds, first hits and padding steps counted from the digits).  Registers
+and spills come from ptxas (the build's log), resident blocks per SM from
+the library's occupancy export (``_cuda.occupancy``).  The card's name and
+power limit are printed beside the numbers and the whole record is
+written as JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ import subprocess
 import numpy as np
 import torch
 
-from zkt_plonk_tpu_torch.tools.bounds import affine_bound, projective_bound, step_counts
+from zkt_plonk_tpu_torch.tools.bounds import accumulate_bound, step_counts
 
 
 def ptxas_lines(log_path: str):
@@ -55,6 +54,7 @@ def ptxas_lines(log_path: str):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--curve", default="bn254", choices=("bn254", "bls12_381", "bls12_377"))
     ap.add_argument("--batches", default="1,2,3,6")
     ap.add_argument("--log-n", type=int, default=18)
     ap.add_argument("--reps", type=int, default=5)
@@ -74,8 +74,9 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     dev = torch.device("cuda")
-    ctx = make_context("bn254")
+    ctx = make_context(args.curve)
     spec = ctx.fq_spec
+    L = spec.n_limbs
     ck, _ = kzg.setup(ctx, max_degree=1023, tau=31337, device=dev)  # Z = 1 points
     n, c = (1 << args.log_n) + 4, 8
     K = (1 << (c - 1)) + 1
@@ -84,55 +85,42 @@ def main() -> int:
     W = msm.num_windows(fr_bits + 1, c)
     top = int(ctx.fr_spec.modulus_limbs[-1])
     gen = np.random.default_rng(args.seed)
-    forms = ("projective", "affine")
-
-    def call(form, digits, G):
-        return msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c, affine=form == "affine")
 
     # the occupancy call builds the library, and its log, if need be
-    occupancy = {inst: _cuda.occupancy(inst)
-                 for inst in ("ec_bucket_accumulate", "ec_bucket_accumulate/affine")}
-    build = {"occupancy": occupancy,
+    inst = _cuda.instance("ec_bucket_accumulate", L)
+    build = {"occupancy": {inst: _cuda.occupancy(inst)},
              "ptxas": ptxas_lines(os.path.join(_cuda.BUILD_DIR, "ec_bucket_accumulate.log"))}
     print(f"build: {build}", flush=True)
 
     rows = []
     for B in [int(b) for b in args.batches.split(",")]:
-        G = msm.group_count(n, c, B, W, 16)
+        G = msm.group_count(n, c, B, W, L)
         limbs = gen.integers(0, 1 << 16, size=(B, n, 16), dtype=np.int64)
         limbs[..., 15] = gen.integers(0, top, size=(B, n))
         digits = msm.digit_rows(torch.from_numpy(limbs.astype(np.int32)).to(dev), c, fr_bits, G)
-        BW = digits.shape[0]
         first, repeat, padding = step_counts(digits, n, G, K)
-        aff_b, aff_by = affine_bound(digits, n, G, K)
-        proj_b, proj_by = projective_bound(n, BW, G, K)
-        times = {form: [] for form in forms}
+        b_ms, b_by = accumulate_bound(digits, n, G, K, L)
+        times = []
         for rep in range(args.reps + 1):  # the first round warms up
-            for form in (forms if rep % 2 == 0 else forms[::-1]):
-                torch.cuda.synchronize()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                call(form, digits, G)
-                end.record()
-                end.synchronize()
-                if rep:
-                    times[form].append(start.elapsed_time(end))
-        for form, ts in times.items():
-            ms = statistics.median(ts)
-            row = {"batch": B, "groups": G, "steps": n // G + (n % G > 0),
-                   "form": form, "ms": ms, "all_ms": ts,
-                   "first_hits": first, "repeat_hits": repeat, "padding_hits": padding,
-                   "affine_bound_ms": aff_b, "affine_bound_by": aff_by,
-                   "projective_bound_ms": proj_b, "projective_bound_by": proj_by}
-            rows.append(row)
-            print(f"B={B} G={G} {form:>10s} {ms:8.3f} ms  "
-                  f"bounds: affine {aff_b:.3f} ({aff_by}, {aff_b / ms:.0%}), "
-                  f"all steps {proj_b:.3f} ({proj_by}, {proj_b / ms:.0%});  first hits "
-                  f"{first / (first + repeat):.1%} of {first + repeat} steps", flush=True)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c)
+            end.record()
+            end.synchronize()
+            if rep:
+                times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        rows.append({"batch": B, "groups": G, "steps": n // G + (n % G > 0), "ms": ms,
+                     "all_ms": times, "first_hits": first, "repeat_hits": repeat,
+                     "padding_hits": padding, "bound_ms": b_ms, "bound_by": b_by})
+        print(f"B={B} G={G} {ms:8.3f} ms  bound {b_ms:.3f} ({b_by}, {b_ms / ms:.0%});  first hits "
+              f"{first / (first + repeat):.1%} of {first + repeat} steps", flush=True)
         del digits
         torch.cuda.empty_cache()
-    record = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "n": n, "c": c,
+    record = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "curve": args.curve,
+              "n": n, "c": c,
               "reps": args.reps, "build": build, "rows": rows}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
