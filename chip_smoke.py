@@ -6,7 +6,7 @@ card (it exits non-zero without one), ``nvcc`` and nothing else.
 
 Phases, one line each:
   1. device   — the card's name, and nvidia-smi's name and power limit;
-  2. build    — nvcc builds of the five kernel sources in csrc/ (in
+  2. build    — nvcc builds of the six kernel sources in csrc/ (in
                 parallel), with ptxas's registers and spills for every
                 kernel instance (a K4a instance that spills fails) and
                 each kernel's SASS instruction mix;
@@ -37,7 +37,10 @@ Phases, one line each:
                 runs of one digit, on the Z = 1 copy (ec.normalize) of
                 points scaled to Z != 1, and its time at the prover's
                 batches B = 1, 2, 3, 6 against the bound of the work its
-                digits need;
+                digits need; before it K5 (the MSM's digit recoding) at
+                n = 2^18 + 4, c = 8, B = 1, 2, 3, 6 on BN254's Fr, B = 3 on
+                BLS12-381's Fr, and c = 4 at n = 4,000, against the plain
+                version bit for bit, with its time against its byte bound;
   4. golden   — the TinyCircuit proof on the card: 802 bytes, fixed sha256;
   5. withdraw — the withdraw circuit at HEIGHT=48, NOTES=3, TABLE=1024
                 (n = 2^18) on BN254: SRS setup, compile, cold and warm
@@ -600,6 +603,66 @@ def parity_ec_add(records, dev, curve="bn254", record=True):
     )
 
 
+def parity_msm_digits(records, dev):
+    """K5 (the MSM's digit recoding) at the main paths' shapes: n = 2^18 + 4,
+    c = 8, B = 3, 1, 2, 6 with the G rule's G on BN254's Fr, B = 3 on
+    BLS12-381's Fr, and c = 4 at n = 4,000, B = 3; the codes equal those of
+    the plain version on the same card tensors, bit for bit, for random
+    scalars with 0, 1, r - 1, windows of 2^(c-1), carry chains through
+    every window and negative zeros, in the first and the last columns;
+    each call's time against its byte bound and the plain version's."""
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.fields import BLS12_381_FR, BN254_FR, make_spec
+    from zkt_plonk_tpu_torch.fields.limbs import ints_to_array
+    from zkt_plonk_tpu_torch.ops import msm
+    from zkt_plonk_tpu_torch.tools.bounds import digits_bound
+
+    key = "msm_digits"
+    gen = np.random.default_rng(47)
+    n18 = (1 << 18) + 4
+    cases = [(BN254_FR, n18, 8, B) for B in (3, 1, 2, 6)]
+    cases += [(BLS12_381_FR, n18, 8, 3), (BN254_FR, 4000, 4, 3)]
+    rec, worst = None, 0
+    for params, n, c, B in cases:
+        r = params.modulus
+        fr_bits = r.bit_length()
+        W = msm.num_windows(fr_bits + 1, c)
+        G = msm.group_count(n, c, B, W, 16)
+        half, full = 1 << (c - 1), 1 << c
+
+        def runs(ds):
+            return sum(ds[w % len(ds)] << (c * w) for w in range((fr_bits - 2) // c))
+
+        edge = ints_to_array([0, 1, r - 1, runs([half]), runs([half + 1] + [half] * 80),
+                              runs([full - 1]), runs([half + 1, half, full - 1])], 16)
+        S_np = random_limbs(make_spec(params), B * n, gen).reshape(B, n, 16)
+        S_np[0, : len(edge)] = edge
+        S_np[B - 1, n - len(edge):] = edge
+        S = torch.from_numpy(S_np).to(dev)
+        before = _cuda.launches[key]
+        got = msm.digit_rows(S, c, fr_bits, G)
+        if _cuda.launches[key] != before + 1:
+            raise AssertionError(f"digit_rows on the card did not launch {key}")
+        plain = msm.digit_rows_plain(S, c, fr_bits, G)
+        err = max_abs_err(got, plain)
+        if err != 0 or got.shape != plain.shape or got.dtype != plain.dtype:
+            raise AssertionError(f"{key} at n={n}, B={B}, c={c} disagrees (max_abs_err {err})")
+        worst = max(worst, err)
+        k_ms = time_cuda(lambda: msm.digit_rows(S, c, fr_bits, G))
+        p_ms = time_cuda(lambda: msm.digit_rows_plain(S, c, fr_bits, G), reps=5, warmup=1)
+        b_ms, b_by = digits_bound(B, n, 16, W, got.shape[1])
+        say("parity", kernel=key, field=params.name, shape=f"n={n},B={B},c={c},G={G}", ms=k_ms,
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, bound_share=round(b_ms / k_ms, 4),
+            max_abs_err=err)
+        if rec is None:  # the prover's middle batch
+            rec = dict(name=key, route="cuda", source="zkt_plonk_tpu_torch/csrc/msm_digits.cu",
+                       replaces="none (jnp: zkt_plonk_tpu/ops/msm.py:171)", ms=k_ms,
+                       plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del S, got, plain
+    rec["max_abs_err"] = worst
+    records[key] = rec
+
+
 def _host_row(ck, pts_host, digits, g, bw, G, K):
     """Buckets of row (g, bw) by host affine arithmetic."""
     from zkt_plonk_tpu_torch.curves import curve_host as ch
@@ -1016,11 +1079,14 @@ def sharded_proofs(phase, dev, inst, compiled, circuit, pub_inputs, want, single
         nvidia_smi=f"'{nvidia_smi_line()}'")
     say(phase, launches_per_warm_proof=json.dumps({"single_device": single_launches,
                                                    "sharded_d1": sharded_launches}))
-    # the commits run K4a at the key's width
+    # the commits run K4a at the key's width, each batch's digits from K5
     key = _cuda.instance("ec_bucket_accumulate", inst.ctx.fq_spec.n_limbs)
     for path, got in (("single_device", single_launches), ("sharded_d1", sharded_launches)):
         if got.get(key, 0) == 0:
             raise AssertionError(f"{phase} {path}: K4a launches {got}: want {key}")
+        if got.get("msm_digits", 0) != got[key]:
+            raise AssertionError(f"{phase} {path}: {got[key]} K4a launches, "
+                                 f"{got.get('msm_digits', 0)} of msm_digits")
 
 
 def device_busy_share(fn):
@@ -1656,6 +1722,7 @@ def main() -> int:
         parity_ec_add(records, dev)
         parity_ec_add(records, dev, "bls12_381")
         parity_ec_add(records, dev, "bls12_377", record=False)
+        parity_msm_digits(records, dev)
         parity_ec_bucket_accumulate(records, dev)
         parity_ec_bucket_accumulate(records, dev, "bls12_381")
         parity_ec_bucket_accumulate(records, dev, "bls12_377", record=False)

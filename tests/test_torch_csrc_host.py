@@ -32,7 +32,14 @@ shared-memory loads and stores as plain ones) and a stub
 * kernel K2's chain (the device part of ``csrc/fp_pow_chain.cu``, run as
   one thread) against Python's ``pow``, e = p - 2 and 5, in each of its
   instances: lazy at L = 16 (BN254's Fr), strict at L = 16 (BLS12-381's
-  Fr) and lazy at L = 24 (BLS12-381's and BLS12-377's Fq).
+  Fr) and lazy at L = 24 (BLS12-381's and BLS12-377's Fq);
+* kernel K5's recoding (the device part of ``csrc/msm_digits.cu``, its
+  grid of blocks and threads run one thread after another) against
+  ``ops/msm.digit_rows``' plain version, code for code: both load paths
+  (16-byte vectors and single limbs), packed and unpacked stores (n_pad
+  even and odd), windows of 4, 5, 8 and 11 bits (spanning two limbs and
+  running past the limbs), 14 and 16 limbs, on 0, 1, r - 1, runs of
+  2^(c-1), 2^(c-1) + 1 and 2^c - 1 windows and random scalars.
 
 Without ``g++`` the module's fixtures skip.
 """
@@ -54,7 +61,7 @@ from zkt_plonk_tpu_torch.fields import cuda as fc
 from zkt_plonk_tpu_torch.fields import make_spec
 from zkt_plonk_tpu_torch.fields.limbs import array_to_ints, ints_to_array
 from zkt_plonk_tpu_torch.fields.params import BLS12_377_FQ, BLS12_381_FQ, BLS12_381_FR, BN254_FR
-from zkt_plonk_tpu_torch.ops import ec, ec_cuda
+from zkt_plonk_tpu_torch.ops import ec, ec_cuda, msm
 
 CSRC = Path(__file__).resolve().parents[1] / "zkt_plonk_tpu_torch" / "csrc"
 
@@ -489,3 +496,91 @@ def test_pow_chain_matches_python_pow(pow_lib, params):
         pow_lib.host_pow_chain(L, int(strict), consts, _ptr(a), _ptr(out), len(vals), sched.ntab,
                                sched.first, len(sched.steps), sched.tail, _ptr(sq), _ptr(dig))
         assert array_to_ints(out) == [pow(v, e, p) for v in vals], (params.name, e)
+
+
+# kernel K5 on the host: each thread's indices are thread_local, and the
+# shim walks the kernel's grid one thread after another (its threads share
+# nothing)
+DIGITS_STUB = r"""
+#pragma once
+#include <cstdint>
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+struct int4 { int x, y, z, w; };
+struct uint3 { unsigned x, y, z; };
+struct dim3 { unsigned x, y, z; };
+static thread_local uint3 threadIdx, blockIdx;
+static thread_local dim3 blockDim, gridDim;
+template <class T> inline T __ldg(const T* p) { return *p; }
+"""
+
+DIGITS_SHIM = r"""
+#include "msm_digits.cuh"
+
+extern "C" void host_msm_digits(const int32_t* s, int16_t* out, int B, long long n, int Lr,
+                                long long n_pad, int c, int W, int vec) {
+  const unsigned T = zk::DIGIT_THREADS;
+  blockDim = dim3{T, 1, 1};
+  gridDim = dim3{(unsigned)(((n_pad + 1) / 2 + T - 1) / T), (unsigned)B, 1};
+  for (unsigned y = 0; y < gridDim.y; ++y)
+    for (unsigned x = 0; x < gridDim.x; ++x)
+      for (unsigned t = 0; t < T; ++t) {
+        blockIdx = uint3{x, y, 0};
+        threadIdx = uint3{t, 0, 0};
+        if (vec) {
+          zk::msm_digits_kernel<true>(s, out, n, n_pad, Lr, c, W);
+        } else {
+          zk::msm_digits_kernel<false>(s, out, n, n_pad, Lr, c, W);
+        }
+      }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def digits_lib(tmp_path_factory):
+    """K5's device code: ``csrc/msm_digits.cu`` up to its C launcher."""
+    device_part = (CSRC / "msm_digits.cu").read_text().split('extern "C"')[0]
+    lib = _host_build(tmp_path_factory, "host_digits",
+                      {"cuda_runtime.h": DIGITS_STUB, "msm_digits.cuh": device_part}, DIGITS_SHIM)
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.host_msm_digits.argtypes = [P, P, I, LL, I, LL, I, I, I]
+    return lib
+
+
+def _window_runs(c, bits, digits):
+    """The integer whose c-bit windows below ``bits`` are ``digits`` in turn."""
+    out = 0
+    for w in range(bits // c):
+        out |= digits[w % len(digits)] << (c * w)
+    return out
+
+
+# (c, B, n, G, Lr, vectors): n_pad = ceil(n / G) * G is odd where G = 1
+DIGIT_CASES = [
+    (8, 3, 37, 8, 16, True), (4, 1, 37, 1, 16, True), (8, 2, 37, 1, 16, False),
+    (11, 2, 20, 8, 16, True), (5, 2, 9, 4, 14, False),
+]
+
+
+@pytest.mark.parametrize("c, B, n, G, Lr, vec", DIGIT_CASES)
+def test_msm_digits_match_digit_rows_plain(digits_lib, c, B, n, G, Lr, vec):
+    r = BN254_FR.modulus
+    fr_bits = r.bit_length()
+    bits = min(16 * Lr, fr_bits - 2)
+    half, full = 1 << (c - 1), 1 << c
+    rng = random.Random(c * 1000 + n)
+    vals = [0, 1, _window_runs(c, bits, [half]), _window_runs(c, bits, [half + 1, half]),
+            _window_runs(c, bits, [full - 1]), _window_runs(c, bits, [half, full - 1, half + 1])]
+    if 16 * Lr >= fr_bits:
+        vals.append(r - 1)
+    vals += [rng.randrange(min(r, 1 << (16 * Lr))) for _ in range(B * n - len(vals))]
+    S = ints_to_array(vals, Lr).astype(np.int32).reshape(B, n, Lr)
+    want = msm.digit_rows(torch.from_numpy(S), c, fr_bits, G).numpy()
+    got = np.full_like(want, 0x5A5A)  # every code must be written, padding included
+    digits_lib.host_msm_digits(_ptr(S), _ptr(got), B, n, Lr, want.shape[1], c,
+                               want.shape[0] // B, int(vec))
+    np.testing.assert_array_equal(got, want)

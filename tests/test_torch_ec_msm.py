@@ -9,6 +9,9 @@ JAX package.
 * the bucket group rule ``msm.group_count`` at the prover's commit
   batches, per instance from its resident rows;
 * ``fixed_base_msm`` at 16 scalars against host scalar multiplication;
+* the digit rows (plain CPU version of kernel K5, ``digit_rows``) against
+  ``zkt_plonk_tpu.ops.msm.signed_window_digits`` on BN254's and
+  BLS12-381's Fr at c = 4 and 8, B = 1 and 3, with padding columns;
 * the bucket accumulation (plain CPU version of kernel K4a) against
   ``zkt_plonk_tpu.ops.msm._accumulate`` as bucket limbs, bit for bit, at
   n = 68, c = 4, G = 8 (identity padding to 72 points), on random scalars
@@ -240,6 +243,45 @@ def test_signed_digit_codes_keep_negative_zero():
     assert codes[:3, 1].tolist() == [~1, ~0, 1]
     assert codes[:2, 2].tolist() == [8, 0]
     assert codes[:2, 3].tolist() == [~7, 1]
+
+
+def _runs(c, bits, digits):
+    """The integer whose c-bit windows below ``bits`` are ``digits`` in turn."""
+    return sum(digits[w % len(digits)] << (c * w) for w in range(bits // c))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("c", [4, 8])
+@pytest.mark.parametrize("field", [BN254_FR, BLS12_381_FR], ids=lambda f: f.name)
+def test_digit_rows_match_jax_signed_window_digits(field, c, B):
+    """``digit_rows``' plain version against the JAX recoding, its
+    (magnitude, negate) pairs coded m or ~m: row b*W + w, the padding
+    columns n..n_pad zero.  Scalars 0, 1, r - 1, every window 2^(c-1) (no
+    carry), 2^(c-1) + 1 then 2^(c-1) (a carry through every window),
+    2^c - 1 (negative zeros) and random ones; n = 37 is not a multiple of
+    G = 8.  The work counter counts every code, padding included."""
+    r = field.modulus
+    fr_bits = r.bit_length()
+    n, G = 37, 8
+    half, full = 1 << (c - 1), 1 << c
+    bits = fr_bits - 2
+    rng = random.Random(fr_bits * c + B)
+    vals = [0, 1, r - 1, _runs(c, bits, [half]), _runs(c, bits, [half + 1] + [half] * 80),
+            _runs(c, bits, [full - 1]), _runs(c, bits, [half + 1, half, full - 1])]
+    vals += [rng.randrange(r) for _ in range(B * n - len(vals))]
+    S = ints_to_array(vals, 16).astype(np.int32)
+    codes0 = _cuda.work["msm_digit_codes"]
+    got = msm.digit_rows(torch.from_numpy(S).reshape(B, n, 16), c, fr_bits, G)
+    assert _cuda.work["msm_digit_codes"] - codes0 == got.numel()
+    mags, negs = jmsm.signed_window_digits(jnp.asarray(S.astype(np.uint32)), c, fr_bits)
+    mags = np.asarray(mags).astype(np.int64)
+    codes = np.where(np.asarray(negs), ~mags, mags)  # (W, B*n)
+    W = codes.shape[0]
+    assert W == msm.num_windows(fr_bits + 1, c)
+    assert got.dtype == torch.int16 and got.shape == (B * W, 40)
+    np.testing.assert_array_equal(got[:, :n].numpy(),
+                                  codes.reshape(W, B, n).transpose(1, 0, 2).reshape(B * W, n))
+    assert not got[:, n:].any()
 
 
 def test_bucket_accumulate_batch_matches_single_calls(srs):

@@ -190,3 +190,42 @@ def test_device_intervals_read_a_chrome_trace_on_the_wall_clock():
     assert [(c, n) for c, n, _, _ in got] == [("kernel", "k"), ("gpu_memcpy", "Memcpy HtoD")]
     assert [t for _, _, a, b in got for t in (a, b)] == pytest.approx(
         [3.0, 3.00025, 3.0005, 3.0006])
+
+
+def test_device_ops_are_joined_to_their_launching_call_and_span():
+    """Each device op takes the start of the host call with its correlation
+    id (None without one); ``launch_sites`` puts its device ms under the
+    innermost span open at that call, classed as the digit recoding, the
+    rest of a commit, or elsewhere."""
+    data = {"baseTimeNanoseconds": 0, "traceEvents": [
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 1_500_000,
+         "dur": 5, "args": {"correlation": 7}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ts": 2_500_000,
+         "dur": 5, "args": {"correlation": 8}},
+        {"ph": "X", "cat": "cuda_driver", "name": "cuLaunchKernel", "ts": 3_500_000,
+         "dur": 5, "args": {"correlation": 9}},
+        {"ph": "X", "cat": "kernel", "name": "void at::native::elementwise_kernel<128, 2>(int)",
+         "ts": 1_600_000, "dur": 4000, "args": {"correlation": 7}},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoD (Device -> Device)",
+         "ts": 2_600_000, "dur": 2000, "args": {"correlation": 8}},
+        {"ph": "X", "cat": "kernel", "name": "void zk::msm_digits_kernel<true>(int const*)",
+         "ts": 3_600_000, "dur": 1000, "args": {"correlation": 9}},
+        {"ph": "X", "cat": "kernel", "name": "void at::native::(anonymous namespace)::"
+         "CatArrayBatchedCopy<int>(int)", "ts": 4_000_000, "dur": 500, "args": {}},
+    ]}
+    ops = pw.launched_ops(data)
+    assert [op[4] for op in ops] == pytest.approx([1.5, 2.5, 3.5, None])
+    spans = [Span("prove", 0.0, 5.0, 0, -1, 1, 1), Span("commit", 1.0, 2.0, 1, 0, 1, 1),
+             Span("msm", 1.2, 1.9, 2, 1, 1, 1), Span("digit_rows", 1.4, 1.6, 3, 2, 1, 1),
+             Span("round3", 2.0, 4.0, 4, 0, 1, 1), Span("digit_rows", 3.4, 3.6, 5, 4, 1, 1)]
+    got = pw.launch_sites(ops, spans, proofs=2)
+    want = {"digit_rows": {"at::native::elementwise_kernel": 2.0, "zk::msm_digits_kernel": 0.5},
+            "elsewhere": {"Memcpy DtoD": 1.0}}
+    assert set(got["by_class"]) == set(want)
+    for site, ms in want.items():
+        assert got["by_class"][site] == pytest.approx(ms)
+    assert got["unmatched_ms"] == pytest.approx(0.25)
+    assert got["by_site"][0] == ["prove/commit/msm/digit_rows", "at::native::elementwise_kernel",
+                                 pytest.approx(2.0)]
+    assert pw.site_class("prove/round1+2/commit/fold") == "commit/msm"
+    assert pw.short_name("Memcpy HtoD (Pinned -> Device)") == "Memcpy HtoD"

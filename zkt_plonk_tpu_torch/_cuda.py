@@ -18,7 +18,9 @@ mode (``reduction_consts``), ``fp_pow_chain/L24`` K2 at L = 24.
 that a kernel's caller asks of it, computed from the call's arguments
 whatever implements it: ``ec_bucket_adds``, the B x n x W bucket adds of
 each ``ops/msm.bucket_accumulate`` call (B scalar vectors of W windows over
-n points, before padding), on the card and in the plain version alike.
+n points, before padding), and ``msm_digit_codes``, the B x W x n_pad
+int16 codes of each ``ops/msm.digit_rows`` call (padding included), on
+the card and in the plain version alike.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 
 KERNELS = (
     "fp_binop", "fp_pow_chain", "ntt_col_pass", "ec_add_complete", "ec_bucket_accumulate",
+    "msm_digits",
 )
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -53,7 +56,7 @@ EXTRA_INSTANCES = (
 INSTANCES = KERNELS + EXTRA_INSTANCES
 
 launches: Dict[str, int] = {name: 0 for name in INSTANCES}
-work: Dict[str, int] = {"ec_bucket_adds": 0}
+work: Dict[str, int] = {"ec_bucket_adds": 0, "msm_digit_codes": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -179,6 +182,7 @@ def _declare(name: str, cdll: ctypes.CDLL) -> ctypes.CDLL:
         "ntt_col_pass": {"zk_ntt_fused_pass": [I, P, P, I, LL, LL, I, I, I, I, P, P, P, I, UP, P]},
         "ec_add_complete": {"zk_ec_add_complete": [I, P, P, P, LL, I, LLP, LLP, LLP, I, UP, P]},
         "ec_bucket_accumulate": {"zk_ec_bucket_accumulate": acc},
+        "msm_digits": {"zk_msm_digits": [P, P, I, LL, I, LL, I, I, P]},
     }
     occ = [I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     fns = dict(sigs[name])

@@ -16,7 +16,8 @@ the window fold on the host — with the bucket layout chosen for the card:
   mixed add, a bucket's first hit two products and a padding step three;
 * the bucket tensor is laid out group-major (G, B*W, K) so every merge
   step adds two contiguous halves; the merges and the suffix scan are K4;
-* digits are computed in bulk before the accumulation, as int16 codes.
+* digits are computed in bulk before the accumulation, as int16 codes, by
+  kernel K5 (``digit_rows``), one launch per batch.
 
 Only the final affine point has to match the JAX MSM; the bucket layout is
 this module's own.
@@ -236,14 +237,46 @@ def bucket_accumulate(
     return out
 
 
-def digit_rows(scalars: torch.Tensor, c: int, fr_bits: int, G: int) -> torch.Tensor:
-    """(B, n, Lr) scalars -> (B*W, n_pad) int16 digit codes, row b*W + w
-    for window w of scalar vector b, zero-padded to n_pad = ceil(n/G)*G."""
+# K5 takes up to 16 limbs a scalar and windows up to 15 bits: a window spans
+# at most two limbs and its codes fit int16
+DIGIT_MAX_LIMBS = 16
+DIGIT_MAX_C = 15
+
+
+def digit_rows_plain(scalars: torch.Tensor, c: int, fr_bits: int, G: int) -> torch.Tensor:
+    """The plain PyTorch version of K5: ``signed_digit_codes`` of all B*n
+    scalars, then a transpose and a pad."""
     B, n, Lr = scalars.shape
     codes = signed_digit_codes(scalars.reshape(B * n, Lr), c, fr_bits)  # (W, B*n)
     W = codes.shape[0]
     digits = codes.reshape(W, B, n).transpose(0, 1).reshape(B * W, n)
     return torch.nn.functional.pad(digits, (0, -(-n // G) * G - n))
+
+
+def digit_rows(scalars: torch.Tensor, c: int, fr_bits: int, G: int) -> torch.Tensor:
+    """(B, n, Lr) canonical scalar limbs -> (B*W, n_pad) int16 digit codes
+    of ``signed_digit_codes``, row b*W + w for window w of scalar vector b,
+    zero-padded to n_pad = ceil(n/G)*G.  Kernel K5 (``msm_digits``, one
+    launch) on the card, ``digit_rows_plain`` on the CPU."""
+    B, n, Lr = scalars.shape
+    W = num_windows(fr_bits + 1, c)
+    n_pad = -(-n // G) * G
+    _cuda.count_work("msm_digit_codes", B * W * n_pad)
+    if scalars.device.type == "cpu":
+        return digit_rows_plain(scalars, c, fr_bits, G)
+    if scalars.device.type != "cuda":
+        raise ValueError(f"scalars on {scalars.device}")
+    if scalars.dtype != torch.int32 or not 1 <= Lr <= DIGIT_MAX_LIMBS or not 1 <= c <= DIGIT_MAX_C:
+        raise ValueError(
+            f"msm_digits takes (B, n, <= {DIGIT_MAX_LIMBS}) int32 limbs and c <= {DIGIT_MAX_C}, "
+            f"got {tuple(scalars.shape)} {scalars.dtype}, c = {c}")
+    scalars = scalars.contiguous()
+    out = torch.empty((B * W, n_pad), dtype=torch.int16, device=scalars.device)
+    err = _cuda.lib("msm_digits").zk_msm_digits(
+        scalars.data_ptr(), out.data_ptr(), B, n, Lr, n_pad, c, W, _cuda.stream_ptr(scalars))
+    _cuda.check(err, "msm_digits")
+    _cuda.count("msm_digits")
+    return out
 
 
 class CommitPoints(NamedTuple):

@@ -76,3 +76,14 @@ def accumulate_bound(digits: torch.Tensor, n: int, G: int, K: int, L: int = 16):
     nbytes = 2 * 2 * L * n + 2 * BW * n_pad + 3 * 4 * L * G * BW * K
     ops = repeat * mixed + first * 2 * modmul + padding * 3 * modmul
     return bound_ms(nbytes, ops)
+
+
+# ---------------------------------------------------------------------------
+# K5, the MSM's digit recoding (ops/msm.py digit_rows)
+# ---------------------------------------------------------------------------
+
+
+def digits_bound(B: int, n: int, Lr: int, W: int, n_pad: int):
+    """K5: the B x n scalars' int32 limbs read once, the (B*W, n_pad) int16
+    codes written once; no multiplies."""
+    return bound_ms(4 * B * n * Lr + 2 * B * W * n_pad, 0)

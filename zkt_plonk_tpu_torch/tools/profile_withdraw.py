@@ -41,7 +41,15 @@ proof's sha256 (the seed is fixed, so two trees that prove the same bytes
 report the same digest) and the card's name and power limit.  With
 ``--sharded`` the proofs go through ``parallel.ShardedProver`` on a
 world-size-1 NCCL mesh (the same rounds on (body, tail) shards, the same
-bytes).  The whole record is written as JSON to ``--out``.
+bytes).  It then proves ``ATTRIBUTE_PROOFS`` (3) more times under
+``torch.profiler`` with CPU and CUDA activity, the recorder on and a span
+``digit_rows`` around each ``ops/msm.digit_rows`` call, and joins every
+device op to the innermost span open at its launching host call (by the
+trace's correlation ids): the device ms a proof of each op kind
+(``at::native::elementwise_kernel``, ``Memcpy DtoD``, ...) launched inside
+``digit_rows``, elsewhere in a ``commit``, and elsewhere, and the span
+paths that launch the most.  The whole record is written as JSON to
+``--out``.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import os
 import random
 import re
 import subprocess
+import tempfile
 import time
 from collections import defaultdict
 from typing import Dict, Sequence
@@ -60,7 +69,8 @@ from typing import Dict, Sequence
 import torch
 
 from zkt_plonk_tpu_torch.utils.profiling import (
-    Interval, covered, idle_gaps, own_intervals, paths, self_seconds, union)
+    DEVICE_CATEGORIES, Interval, covered, idle_gaps, innermost, own_intervals, paths, self_seconds,
+    union)
 
 # device kernel names of the MSM's EC kernels (csrc/ec_bucket_accumulate.cu,
 # csrc/ec_add_complete.cu), every instance, and of the NTT (csrc/ntt_col_pass.cu)
@@ -70,6 +80,7 @@ KERNELS = {
     "K3": ("ntt_fused_pass_kernel",),
 }
 PROOFS = 6  # proofs with the recorder on, and as many with it off
+ATTRIBUTE_PROOFS = 3  # proofs of the attribution pass
 
 
 def phase_table(spans, proofs: int, busy: Sequence[Interval] = ()) -> Dict[str, dict]:
@@ -102,6 +113,113 @@ def section_cost_us(profiling, repeats: int) -> Dict[str, float]:
         profiling.enable(False)
         profiling.drain()
     return out
+
+
+def short_name(name: str) -> str:
+    """A device op's name without its template and argument lists:
+    ``at::native::elementwise_kernel``, ``Memcpy DtoD``."""
+    s = name[5:] if name.startswith("void ") else name
+    s = s.replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", s, maxsplit=1)[0].strip()
+
+
+def site_class(path: str) -> str:
+    """The launching site of a span path: the MSM's digit recoding
+    (``digit_rows``), the rest of a commit (``commit/msm``), or elsewhere."""
+    parts = path.split("/")
+    if "digit_rows" in parts:
+        return "digit_rows"
+    if "commit" in parts or "msm" in parts:
+        return "commit/msm"
+    return "elsewhere"
+
+
+# the host calls that launch device ops, by their Chrome trace category
+HOST_CALL_CATEGORIES = ("cuda_runtime", "cuda_driver")
+
+
+def launched_ops(data: dict):
+    """(category, name, start, end, launch) of every kernel, memcpy and
+    memset of a Chrome trace (the dict of its JSON), in wall-clock seconds;
+    ``launch`` is the start of the host call (``cudaLaunchKernel``,
+    ``cudaMemcpyAsync``, ...) with the same correlation id, which the trace
+    holds where the profiler recorded CPU activity, else None."""
+    base_us = data.get("baseTimeNanoseconds", 0) / 1e3
+    events = [e for e in data.get("traceEvents", []) if e.get("ph") == "X" and "dur" in e]
+    calls = {e["args"]["correlation"]: (float(e["ts"]) + base_us) / 1e6 for e in events
+             if e.get("cat") in HOST_CALL_CATEGORIES and "correlation" in e.get("args", {})}
+    out = []
+    for e in events:
+        if e.get("cat") in DEVICE_CATEGORIES:
+            start = (float(e["ts"]) + base_us) / 1e6
+            launch = calls.get(e.get("args", {}).get("correlation"))
+            out.append((e["cat"], e.get("name", "?"), start, start + float(e["dur"]) / 1e6, launch))
+    return out
+
+
+def launch_sites(ops, spans, proofs: int, top: int = 25) -> dict:
+    """Device ms a proof of each op kind by the site that launched it: the
+    path of the innermost span open at the op's launching host call
+    (``launched_ops``), classed by ``site_class``; ops whose call the trace
+    lacks are counted apart."""
+    names = paths(spans)
+    by_class = defaultdict(lambda: defaultdict(float))
+    by_site = defaultdict(float)
+    unmatched = 0.0
+    for _, name, a, b, launch in ops:
+        ms = 1e3 * (b - a) / proofs
+        if launch is None:
+            unmatched += ms
+            continue
+        site, op = innermost(spans, names, launch), short_name(name)
+        by_class[site_class(site)][op] += ms
+        by_site[(site, op)] += ms
+    return {
+        "proofs": proofs,
+        "by_class": {k: dict(sorted(v.items(), key=lambda kv: -kv[1])) for k, v in by_class.items()},
+        "by_site": [[site, op, ms] for (site, op), ms in
+                    sorted(by_site.items(), key=lambda kv: -kv[1])[:top]],
+        "unmatched_ms": unmatched,
+    }
+
+
+def attribute(prove, proofs: int) -> dict:
+    """``launch_sites`` of ``proofs`` calls of ``prove`` under
+    ``torch.profiler`` with CPU and CUDA activity, the recorder on and a
+    span ``digit_rows`` around each ``ops/msm.digit_rows`` call."""
+    from zkt_plonk_tpu_torch.ops import msm
+    from zkt_plonk_tpu_torch.utils import profiling
+
+    real = msm.digit_rows
+
+    def spanned(*args, **kwargs):
+        with profiling.section("digit_rows"):
+            return real(*args, **kwargs)
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    profiling.drain()
+    msm.digit_rows = spanned
+    profiling.enable(True)
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            offset = time.time() - time.perf_counter()
+            for _ in range(proofs):
+                prove()
+                torch.cuda.synchronize()
+    finally:
+        profiling.enable(False)
+        msm.digit_rows = real
+    spans = [s._replace(start=s.start + offset, end=s.end + offset) for s in profiling.drain()]
+    fd, path = tempfile.mkstemp(prefix="zkt-trace-", suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            data = json.load(f)
+    finally:
+        os.remove(path)
+    return launch_sites(launched_ops(data), spans, proofs)
 
 
 def host_memory() -> Dict[str, int]:
@@ -257,6 +375,8 @@ def main() -> int:
         "kernels_ms_per_proof": kernels_ms,
         "top_device_ops": [{"name": k, "seconds": v[0], "calls": v[1]} for k, v in top],
     }
+    record["attribution"] = attribute(
+        lambda: inst.prove(compiled, circuit, rng=rng, prover=prover), ATTRIBUTE_PROOFS)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)
@@ -284,6 +404,14 @@ def main() -> int:
         print(f"  idle gap {1e3 * seconds:9.3f} ms  {name}")
     for k, v in top:
         print(f"  {v[0] * 1e3:10.2f} ms {v[1]:7d} ops  {k[:90]}")
+    att = record["attribution"]
+    print(f"attribution: device ms a proof by launching site ({att['proofs']} proofs; "
+          f"ops without their launching call {att['unmatched_ms']:.3f} ms)")
+    for klass, ops in att["by_class"].items():
+        print(f"  {klass}: {sum(ops.values()):.3f} ms: "
+              + ", ".join(f"{op} {ms:.3f}" for op, ms in list(ops.items())[:8]))
+    for site, op, ms in att["by_site"]:
+        print(f"  {ms:9.3f} ms  {op[:44]:44s} {site}")
     if args.sharded:
         import torch.distributed as dist
 
