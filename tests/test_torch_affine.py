@@ -6,9 +6,14 @@
   are the JAX package's SRS points; a point with Z = 0 raises;
 * ``msm.bucket_accumulate`` raises on a point with Z != 1 and on a window
   past its instance's shared memory;
-* ``msm.msm_totals`` over the copy gives the window totals of the scaled
-  points, which it normalizes itself, and they fold to the JAX package's
-  host MSM;
+* ``msm.msm_totals`` over the copy gives window totals that fold to what
+  ``msm.msm`` gives over the scaled points and to the JAX package's host
+  MSM; ``msm_totals``, ``commit_rows``, ``parallel.ops.pmsm_totals`` and
+  ``pcommit_totals`` refuse a bare points tensor (TypeError);
+* ``msm.msm`` over points that hold the identity (Z = 0) drops it with its
+  scalar, and equals the JAX package's ``msm_totals`` + ``fold_windows_host``:
+  a lone identity with scalar 1 gives None, 7 SRS points and the identity
+  with random scalars an affine point;
 * ``kzg.Committer`` on a key of scaled points commits through the copy,
   built once per key and shared by its committers, and equals the JAX
   package's commitments over the same scaled points; the IPA generators'
@@ -16,8 +21,11 @@
   commits over it as the host MSM does.
 """
 
+import functools
 import random
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -26,11 +34,14 @@ from zkt_plonk_tpu.commitment import kzg as jkzg
 from zkt_plonk_tpu.curves import curve_host as jch
 from zkt_plonk_tpu.curves import make_context as jax_make_context
 from zkt_plonk_tpu.ops import ec as jec
+from zkt_plonk_tpu.ops import msm as jmsm
 from zkt_plonk_tpu_torch.commitment import ipa, kzg
 from zkt_plonk_tpu_torch.curves import make_context
 from zkt_plonk_tpu_torch.fields import device as fd
 from zkt_plonk_tpu_torch.fields.limbs import array_to_ints, ints_to_array
 from zkt_plonk_tpu_torch.ops import ec, msm
+from zkt_plonk_tpu_torch.parallel import ops as pops
+from zkt_plonk_tpu_torch.parallel.mesh import Mesh
 
 N, TAU = 68, 4242
 
@@ -95,12 +106,73 @@ def test_msm_totals_over_the_copy_match_the_scaled_points(scaled):
     S = _scalars(ctx, N, 5)
     fr_bits = ctx.curve.fr.modulus.bit_length()
     copy = msm.commit_points(spec, pts)
-    got = msm.msm_totals(spec, ck.b3, copy, S, fr_bits, c=4, groups=8)
-    assert torch.equal(got, msm.msm_totals(spec, ck.b3, pts, S, fr_bits, c=4, groups=8))
+    totals = msm.msm_totals(spec, ck.b3, copy, S, fr_bits, c=4, groups=8)
+    got = msm.fold_windows_host(spec, ctx.Fq, totals, 4)
+    assert got == msm.msm(spec, ctx.Fq, ck.b3, pts, S, fr_bits, c=4)
     jctx = jax_make_context(ctx.name)
     want = jch.msm([(jctx.Fq(x), jctx.Fq(y)) for x, y in ec.to_affine_host(spec, pts)],
                    array_to_ints(S.numpy()))
-    assert msm.fold_windows_host(spec, ctx.Fq, got, 4) == (int(want[0]), int(want[1]))
+    assert got == (int(want[0]), int(want[1]))
+
+
+@pytest.mark.parametrize("entry", ["msm_totals", "commit_rows", "pmsm_totals", "pcommit_totals"])
+def test_msm_entry_points_refuse_a_bare_tensor(scaled, entry):
+    """The MSM takes its points as a CommitPoints only; a bare tensor raises
+    before any work (pcommit_totals: a CommitPoints body, a bare tail)."""
+    ctx, ck, pts = scaled
+    spec = ctx.fq_spec
+    S = _scalars(ctx, N, 6)
+    fr_bits = ctx.curve.fr.modulus.bit_length()
+    mesh = Mesh(group=None, ranks=(0,), device=torch.device("cpu"), backend="gloo")
+    body = msm.CommitPoints(ck.powers[: N - 4])
+    calls = {
+        "msm_totals": lambda: msm.msm_totals(spec, ck.b3, pts, S, fr_bits),
+        "commit_rows": lambda: msm.commit_rows(ctx, ck.b3, pts, S[None]),
+        "pmsm_totals": lambda: pops.pmsm_totals(spec, ck.b3, pts, S, fr_bits, mesh),
+        "pcommit_totals": lambda: pops.pcommit_totals(spec, ck.b3, body, pts[N - 4:], S[: N - 4],
+                                                      S[N - 4:], fr_bits, 4, mesh),
+    }
+    with pytest.raises(TypeError, match="CommitPoints"):
+        calls[entry]()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_msm_totals(curve):
+    """The JAX package's ``msm_totals`` at c = 4, jitted once per curve."""
+    jctx = jax_make_context(curve)
+    jspec = jctx.fq_spec
+    b3 = jec.b3_const(jspec, jctx.curve.b)
+    fr_bits = jctx.curve.fr.modulus.bit_length()
+    return jctx, jax.jit(lambda p, s: jmsm.msm_totals(jspec, b3, p, s, fr_bits, c=4))
+
+
+@pytest.mark.parametrize("case", ["identity-alone", "seven-and-identity"])
+def test_msm_over_the_identity_matches_jax(scaled, case):
+    """A lone identity with scalar 1 (JAX: None), and 7 SRS points (scaled
+    to Z != 1) with the identity among them, random scalars."""
+    ctx, ck, pts = scaled
+    spec = ctx.fq_spec
+    r = ctx.curve.fr.modulus
+    identity = ec.identity(spec, (1,), device="cpu")
+    if case == "identity-alone":
+        points, vals = identity, [1]
+    else:
+        points = torch.cat([pts[:3], identity, pts[3:7]])
+        rng = random.Random(7)
+        vals = [rng.randrange(r) for _ in range(8)]
+    S = torch.from_numpy(ints_to_array(vals, 16).astype(np.int32))
+    got = msm.msm(spec, ctx.Fq, ck.b3, points, S, r.bit_length())
+    # the JAX MSM pads its points to its G = 8 groups with identity rows and
+    # zero digits; padding the lone identity so here gives both cases one
+    # shape, so one compile per curve
+    pad = 8 - points.shape[0]
+    jpts = torch.cat([points, ec.identity(spec, (pad,), device="cpu")]).numpy().astype(np.uint32)
+    jS = torch.nn.functional.pad(S, (0, 0, 0, pad)).numpy().astype(np.uint32)
+    jctx, jax_totals = _jax_msm_totals(ctx.name)
+    totals = np.asarray(jax_totals(jnp.asarray(jpts), jnp.asarray(jS)))
+    want = jmsm.fold_windows_host(jctx.fq_spec, jctx.Fq, totals, 4)
+    assert (want is None) == (case == "identity-alone")
+    assert got == want
 
 
 def test_committer_commits_through_the_keys_copy_as_jax_does(scaled):

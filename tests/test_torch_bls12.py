@@ -165,7 +165,7 @@ def test_bucket_accumulate_matches_jax_at_24_limbs():
     # 0xFFFF: window 0 is 15 > 8, so window 1 is 15 + 1 = 16, a negative zero
     scalars[:5] = [0, 1, r - 1, 0xFFFF, (r - 1) // 2]
     S = _t(scalars, 16).reshape(1, ACC_N, 16)
-    got = msm._accumulate(ctx.fq_spec, ck.b3, ck.powers, S, r.bit_length(), ACC_C, ACC_G)
+    got = msm._accumulate(ctx.fq_spec, ck.b3, ck.msm_points, S, r.bit_length(), ACC_C, ACC_G)
 
     jspec = jax_make_context(curve).fq_spec
     jb3 = jec.b3_const(jspec, ctx.curve.b)

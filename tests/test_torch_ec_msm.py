@@ -46,6 +46,7 @@ from zkt_plonk_tpu_torch.fields.params import (
     BLS12_377_FQ, BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR, FieldParams,
 )
 from zkt_plonk_tpu_torch.ops import ec, msm
+from zkt_plonk_tpu_torch.utils.scan import tree_reduce
 
 # the G rule's picks at L = 24 for B = 1, 2, 3, 6, 10, from K4a's L = 24
 # residency in msm.ACC_RESIDENT_BLOCKS
@@ -116,7 +117,8 @@ def test_msm_matches_host_msm(srs, msm_case, groups):
     S = torch.from_numpy(ints_to_array(scalars, 16).astype(np.int32))
     fr_bits = ctx.curve.fr.modulus.bit_length()
     c = msm.msm_window_size(68)
-    totals = msm.msm_totals(ctx.fq_spec, ck.b3, ck.powers, S, fr_bits, c=c, groups=groups)
+    points = msm.commit_points(ctx.fq_spec, ck.powers)
+    totals = msm.msm_totals(ctx.fq_spec, ck.b3, points, S, fr_bits, c=c, groups=groups)
     assert msm.fold_windows_host(ctx.fq_spec, ctx.Fq, totals, c) == want
 
 
@@ -223,7 +225,7 @@ def jax_buckets(srs):
 def _port_buckets(ctx, ck, scalars, G):
     S = torch.from_numpy(ints_to_array(scalars, 16).astype(np.int32)).reshape(-1, ACC_N, 16)
     fr_bits = ctx.curve.fr.modulus.bit_length()
-    return msm._accumulate(ctx.fq_spec, ck.b3, ck.powers, S, fr_bits, ACC_C, G)
+    return msm._accumulate(ctx.fq_spec, ck.b3, ck.msm_points, S, fr_bits, ACC_C, G)
 
 
 @pytest.mark.parametrize("kind", ["random", "runs"])
@@ -302,9 +304,10 @@ def test_bucket_sums_with_more_padding_match_jax(srs, jax_buckets):
     ctx, ck = srs
     spec = ctx.fq_spec
     got = _port_buckets(ctx, ck, _bucket_scalars("random", ctx.curve.fr.modulus), 16)
-    got_sum = msm._tree_reduce_points(spec, ck.b3, got)  # (W, K, 3, L)
+    add = lambda a, b: ec.add(spec, ck.b3, a, b)
+    got_sum = tree_reduce(add, got, 0)  # (W, K, 3, L)
     want = torch.from_numpy(np.ascontiguousarray(jax_buckets["random"].transpose(1, 0, 2, 3, 4)))
-    want_sum = msm._tree_reduce_points(spec, ck.b3, want)
+    want_sum = tree_reduce(add, want, 0)
     assert ec.to_affine_host(spec, got_sum) == ec.to_affine_host(spec, want_sum)
 
 

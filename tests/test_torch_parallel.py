@@ -183,6 +183,7 @@ def _batch(mesh2d):
 def _ops_job(mesh, inp, msm):
     from zkt_plonk_tpu_torch.curves import make_context
     from zkt_plonk_tpu_torch.ops import ec
+    from zkt_plonk_tpu_torch.ops import msm as msm_mod
 
     st = pops.build_shard_ntt_tables(make_domain(BN254_FR, N), mesh)
     T = torch.from_numpy
@@ -209,11 +210,12 @@ def _ops_job(mesh, inp, msm):
     ctx = make_context("bn254")
     fr_bits = ctx.curve.fr.modulus.bit_length()
     b3 = ec.b3_const(ctx.fq_spec, ctx.curve.b, device="cpu")
-    pts = shard_rows(mesh, T(msm["points"][:MSM_N]), axis=0)
+    z1 = lambda pts: msm_mod.commit_points(ctx.fq_spec, pts)
+    pts = z1(shard_rows(mesh, T(msm["points"][:MSM_N]), axis=0))
     sc = shard_rows(mesh, T(msm["scalar_limbs"][:MSM_N]), axis=0)
     out["pmsm_totals"] = pops.pmsm_totals(ctx.fq_spec, b3, pts, sc, fr_bits, mesh, c=4, groups=2)
     out["pcommit_totals"] = pops.pcommit_totals(
-        ctx.fq_spec, b3, shard_rows(mesh, T(msm["points"][:N]), axis=0), T(msm["points"][N:]),
+        ctx.fq_spec, b3, z1(shard_rows(mesh, T(msm["points"][:N]), axis=0)), z1(T(msm["points"][N:])),
         shard_rows(mesh, T(msm["scalar_limbs"][:N]), axis=0), T(msm["scalar_limbs"][N:]),
         fr_bits, c=4, mesh=mesh, groups=2)
     return {k: v.numpy() for k, v in out.items()}

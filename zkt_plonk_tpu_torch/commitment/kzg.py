@@ -29,6 +29,7 @@ from ..fields import device as fd
 from ..fields.limbs import ints_to_array
 from ..ops import ec, msm
 from ..utils.profiling import section
+from ..utils.scan import scan
 
 
 @dataclass(eq=False)
@@ -146,21 +147,9 @@ def divide_by_linear(
     xi_powers: (m, L) = [1, xi, ...]; xi_inv_powers: (m, L) = [xi^-1, xi^-2, ...].
     """
     u = fd.mul(fr_spec, coeffs, xi_powers)  # c_j xi^j
-    suf = _suffix_sums(fr_spec, u)  # Σ_{j>=i} u_j
+    suf = scan(lambda a, b: fd.add(fr_spec, a, b), u, 0, reverse=True)  # Σ_{j>=i} u_j
     suf_excl = torch.cat([suf[1:], fd.zeros(fr_spec, (1,), device=suf.device)], dim=0)
     return fd.mul(fr_spec, suf_excl, xi_inv_powers)
-
-
-def _suffix_sums(spec, x):
-    n = x.shape[0]
-    y = x
-    d = 1
-    while d < n:
-        nxt = y.clone()
-        nxt[: n - d] = fd.add(spec, y[: n - d], y[d:])
-        y = nxt
-        d <<= 1
-    return y
 
 
 def check(

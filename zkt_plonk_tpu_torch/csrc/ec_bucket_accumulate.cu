@@ -12,8 +12,8 @@
 // in the reference's order, so the buckets are bit for bit the ones of the
 // per-step loop (msm.bucket_accumulate_plain).
 //
-// The points have Z = 1 (ops/msm.py: a key's copy, commit_points, or a
-// bare tensor normalized by as_commit_points); Z is never read.
+// The points have Z = 1 (ops/msm.py: a CommitPoints, the copy that
+// commit_points makes); Z is never read.
 //
 // What bounds it on the H100: integer multiplies.  Design:
 // * the whole accumulation is Montgomery form: a first kernel converts x

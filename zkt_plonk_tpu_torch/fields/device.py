@@ -17,6 +17,7 @@ import torch
 
 from .. import _cuda
 from ..utils import profiling
+from ..utils.scan import scan
 from . import cuda as fc
 from .limbs import LIMB_BITS, FieldSpec
 
@@ -116,20 +117,9 @@ def powers(spec: FieldSpec, x: torch.Tensor, count: int) -> torch.Tensor:
 
 
 def prefix_products(spec: FieldSpec, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
-    """Inclusive prefix products along ``axis`` (Hillis-Steele, log2 n
-    steps; each step multiplies the tail by the array shifted by d)."""
-    axis = axis % x.dim()
-    n = x.shape[axis]
-    y = x
-    d = 1
-    while d < n:
-        nxt = y.clone()
-        nxt.narrow(axis, d, n - d).copy_(
-            mul(spec, y.narrow(axis, d, n - d), y.narrow(axis, 0, n - d))
-        )
-        y = nxt
-        d <<= 1
-    return y
+    """Inclusive prefix products along ``axis`` (``scan``: log2 n steps,
+    each one K1 product on the card)."""
+    return scan(lambda a, b: mul(spec, a, b), x, axis)
 
 
 def batch_inverse(spec: FieldSpec, x: torch.Tensor, axis: int = 0) -> torch.Tensor:

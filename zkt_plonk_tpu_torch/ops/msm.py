@@ -10,10 +10,10 @@ the window fold on the host — with the bucket layout chosen for the card:
 * the accumulation is kernel K4a (``bucket_accumulate``), one launch per
   batch: a thread owns one bucket row (g, b*W + w) and walks the S steps
   itself, so the per-step gathers and scatters stay inside the kernel;
-* K4a takes points with Z = 1: a commitment key's commits run over a
-  Z = 1 copy of its points made once (``commit_points``), a bare points
-  tensor is normalized on each call (``as_commit_points``); so a step is a
-  mixed add, a bucket's first hit two products and a padding step three;
+* K4a takes points with Z = 1: the MSM runs over a ``CommitPoints``, the
+  Z = 1 copy of a key's points made once (``commit_points``), or of a bare
+  points tensor once per ``msm`` call; so a step is a mixed add, a
+  bucket's first hit two products and a padding step three;
 * the bucket tensor is laid out group-major (G, B*W, K) so every merge
   step adds two contiguous halves; the merges and the suffix scan are K4;
 * digits are computed in bulk before the accumulation, as int16 codes, by
@@ -34,6 +34,7 @@ from .. import _cuda
 from ..fields import cuda as fc
 from ..fields.limbs import LIMB_BITS, FieldSpec
 from ..utils import profiling
+from ..utils.scan import scan, tree_reduce
 from . import ec, ec_cuda
 
 DEFAULT_WINDOW = 8
@@ -281,67 +282,43 @@ def digit_rows(scalars: torch.Tensor, c: int, fr_bits: int, G: int) -> torch.Ten
 
 class CommitPoints(NamedTuple):
     """An MSM's (n, 3, L) points with Z = 1, as K4a takes them
-    (``commit_points``).  The MSM functions below take one wherever they
-    take points; a bare tensor is any projective points."""
+    (``commit_points``): the one form of points the MSM functions below
+    take."""
 
     points: torch.Tensor
 
 
-def as_commit_points(spec: FieldSpec, points) -> CommitPoints:
-    """A CommitPoints as it is; a bare (n, 3, L) tensor normalized to its
-    Z = 1 form (``ec.normalize``, which refuses the identity), on every
-    call."""
-    return points if isinstance(points, CommitPoints) else CommitPoints(ec.normalize(spec, points))
+def z1_points(points: CommitPoints) -> torch.Tensor:
+    """The (n, 3, L) tensor of a CommitPoints.  Anything else raises
+    TypeError: a key makes its Z = 1 copy once (``commit_points``), ``msm``
+    one per call."""
+    if not isinstance(points, CommitPoints):
+        raise TypeError(f"the MSM takes a msm.CommitPoints (commit_points), not a {type(points).__name__}")
+    return points.points
 
 
-def _accumulate(fq_spec, b3, points, scalars, fr_bits, c, G):
+def _accumulate(fq_spec, b3, points: CommitPoints, scalars, fr_bits, c, G):
     """Grouped serial bucket accumulation of B scalar vectors (B, n, Lr)
-    over points (n, 3, L) or a CommitPoints -> (G, B*W, K, 3, L)."""
-    pts = as_commit_points(fq_spec, points)
+    over a CommitPoints -> (G, B*W, K, 3, L)."""
+    pts = z1_points(points)
     digits = digit_rows(scalars, c, fr_bits, G)
-    return bucket_accumulate(fq_spec, b3, pts.points, digits, G, c)
-
-
-def _tree_reduce_points(fq_spec, b3, pts: torch.Tensor) -> torch.Tensor:
-    """EC sum along axis 0 by pairwise halving (k-1 adds, depth log2 k)."""
-    k = pts.shape[0]
-    while k > 1:
-        half = k // 2
-        merged = ec.add(fq_spec, b3, pts[:half], pts[half : 2 * half])
-        if k % 2:
-            merged = torch.cat([merged, pts[k - 1 : k]])
-        pts = merged
-        k = pts.shape[0]
-    return pts[0]
-
-
-def _suffix_scan(fq_spec, b3, x: torch.Tensor, axis: int) -> torch.Tensor:
-    """Inclusive suffix EC sums along ``axis`` (Hillis-Steele)."""
-    k = x.shape[axis]
-    d = 1
-    while d < k:
-        nxt = x.clone()
-        nxt.narrow(axis, 0, k - d).copy_(
-            ec.add(fq_spec, b3, x.narrow(axis, 0, k - d), x.narrow(axis, d, k - d))
-        )
-        x = nxt
-        d <<= 1
-    return x
+    return bucket_accumulate(fq_spec, b3, pts, digits, G, c)
 
 
 def _reduce_buckets(fq_spec, b3, buckets):
     """(G, BW, K, 3, L) group buckets -> (BW, 3, L) weighted totals Σ k·B_k
     = Σ_{k>=1} SS_k with SS the suffix scan over buckets (the k = 0
     bucket, which holds the padding, is never summed)."""
-    Bk = _tree_reduce_points(fq_spec, b3, buckets)  # (BW, K, 3, L)
-    SS = _suffix_scan(fq_spec, b3, Bk, axis=1)
-    return _tree_reduce_points(fq_spec, b3, SS[:, 1:].transpose(0, 1).contiguous())
+    add = lambda a, b: ec.add(fq_spec, b3, a, b)
+    Bk = tree_reduce(add, buckets, 0)  # (BW, K, 3, L)
+    SS = scan(add, Bk, 1, reverse=True)
+    return tree_reduce(add, SS[:, 1:].transpose(0, 1).contiguous(), 0)
 
 
 def msm_totals(
     fq_spec: FieldSpec,
     b3: ec.B3,
-    points,
+    points: CommitPoints,
     scalars: torch.Tensor,
     fr_bits: int,
     c: int = 0,
@@ -349,18 +326,17 @@ def msm_totals(
 ) -> torch.Tensor:
     """Device part of the MSM up to the per-window totals.
 
-    points (n, 3, L) or a CommitPoints; scalars (n, Lr) or a batch
+    points a CommitPoints of n points; scalars (n, Lr) or a batch
     (B, n, Lr).  Returns (W, 3, L) or (B, W, 3, L); ``fold_windows_host``
     finishes each.
     """
     batched = scalars.dim() == 3
     sc = scalars if batched else scalars[None]
-    pts = as_commit_points(fq_spec, points)
-    n = pts.points.shape[0]
+    n = z1_points(points).shape[0]
     c = msm_window_size(n, c)
     W = num_windows(fr_bits + 1, c)
     G = groups if groups > 0 else group_count(n, c, sc.shape[0], W, fq_spec.n_limbs)
-    buckets = _accumulate(fq_spec, b3, pts, sc, fr_bits, c, G)
+    buckets = _accumulate(fq_spec, b3, points, sc, fr_bits, c, G)
     totals = _reduce_buckets(fq_spec, b3, buckets)
     totals = totals.reshape(sc.shape[0], -1, 3, fq_spec.n_limbs)
     return totals if batched else totals[0]
@@ -383,10 +359,18 @@ def fold_windows_host(fq_spec: FieldSpec, Fq, totals, c: int):
     return None if acc is None else (int(acc[0]), int(acc[1]))
 
 
-def msm(fq_spec, Fq, b3, points, scalars, fr_bits: int, c: int = 0):
-    """Σ scalars_i · points_i as a host affine point (or None)."""
+def msm(fq_spec, Fq, b3, points: torch.Tensor, scalars: torch.Tensor, fr_bits: int, c: int = 0):
+    """Σ scalars_i · points_i as a host affine point (or None) over bare
+    (n, 3, L) projective points and (n, Lr) scalars: the one-shot MSM of
+    tests and tools.  The identity rows (Z = 0), which add nothing and have
+    no Z = 1 form, drop out with their scalars; the rest get a Z = 1 copy
+    (``commit_points``) for this call."""
+    keep = (points[:, 2] != 0).any(-1)
+    points, scalars = points[keep], scalars[keep]
+    if points.shape[0] == 0:
+        return None
     c = msm_window_size(points.shape[0], c)
-    totals = msm_totals(fq_spec, b3, points, scalars, fr_bits, c=c)
+    totals = msm_totals(fq_spec, b3, commit_points(fq_spec, points), scalars, fr_bits, c=c)
     return fold_windows_host(fq_spec, Fq, totals, c)
 
 
@@ -404,16 +388,15 @@ def commit_points(spec: FieldSpec, points: torch.Tensor) -> CommitPoints:
     return CommitPoints(copy)
 
 
-def commit_rows(ctx, b3, points, polys) -> list:
+def commit_rows(ctx, b3, points: CommitPoints, polys) -> list:
     """One commitment per row of ``polys`` ((B, m, L) tensor or a list of
-    (m, L)) over the first m of ``points`` ((N, 3, L) or a CommitPoints), as
-    one batched MSM on their device; host affine points (int pairs) or
-    None."""
+    (m, L)) over the first m of ``points``, a key's CommitPoints, as one
+    batched MSM on their device; host affine points (int pairs) or None."""
+    pts = z1_points(points)
     stacked = polys if isinstance(polys, torch.Tensor) else torch.stack(list(polys))
     m = stacked.shape[1]
     c = msm_window_size(m)
     fr_bits = ctx.curve.fr.modulus.bit_length()
-    pts = points.points if isinstance(points, CommitPoints) else ec.normalize(ctx.fq_spec, points[:m])
     with profiling.section("msm"):
         totals = msm_totals(ctx.fq_spec, b3, CommitPoints(pts[:m]), stacked, fr_bits, c=c)
     return fold_rows(ctx, totals, c)

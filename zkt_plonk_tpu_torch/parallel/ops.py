@@ -28,13 +28,13 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..commitment.kzg import _suffix_sums
 from ..fields import device as fd
 from ..fields.limbs import FieldSpec
 from ..ops import msm as msm_mod
 from ..ops import ntt
-from ..ops.msm import _tree_reduce_points
+from ..ops import ec
 from ..utils.domain import make_domain
+from ..utils.scan import scan, tree_reduce
 from .mesh import Mesh
 
 
@@ -267,21 +267,6 @@ def pshard_powers(spec: FieldSpec, x: torch.Tensor, m: int, mesh: Mesh):
     return (base if fac is None else fd.mul(spec, base, fac)), cur
 
 
-def _tree_add(spec: FieldSpec, x: torch.Tensor, axis: int) -> torch.Tensor:
-    """Field add-reduce along ``axis`` (log depth)."""
-    axis = axis % x.dim()
-    k = x.shape[axis]
-    while k > 1:
-        half = (k + 1) // 2
-        lo = x.narrow(axis, 0, half)
-        hi = x.narrow(axis, half, k - half)
-        if k - half < half:
-            hi = torch.cat([hi, torch.zeros_like(lo.narrow(axis, 0, 1))], dim=axis)
-        x = fd.add(spec, lo, hi)
-        k = half
-    return x.squeeze(axis)
-
-
 def _tail_powers(spec: FieldSpec, x: torch.Tensor, xn: torch.Tensor) -> torch.Tensor:
     """(4, L) = x^n .. x^(n+3)."""
     return fd.mul(spec, fd.powers(spec, x, 4), xn)
@@ -295,10 +280,11 @@ def peval_many(spec: FieldSpec, bodies: torch.Tensor, tails: torch.Tensor, x: to
     rows n..n+3, replicated.  Returns (B, L), replicated.
     """
     m = bodies.shape[-2]
+    add = lambda a, b: fd.add(spec, a, b)
     local_powers, xn = pshard_powers(spec, x, m, mesh)
-    partial = _tree_add(spec, fd.mul(spec, bodies, local_powers), axis=-2)  # (B, L)
-    body_sum = _tree_add(spec, mesh.all_gather(partial), axis=0)
-    tail_sum = _tree_add(spec, fd.mul(spec, tails, _tail_powers(spec, x, xn)), axis=-2)
+    partial = tree_reduce(add, fd.mul(spec, bodies, local_powers), -2)  # (B, L)
+    body_sum = tree_reduce(add, mesh.all_gather(partial), 0)
+    tail_sum = tree_reduce(add, fd.mul(spec, tails, _tail_powers(spec, x, xn)), -2)
     return fd.add(spec, body_sum, tail_sum)
 
 
@@ -317,14 +303,15 @@ def pdivide_by_linear(spec: FieldSpec, body: torch.Tensor, tail: torch.Tensor, x
     D, d = mesh.D, mesh.d
     m = body.shape[-2]
     zero = fd.zeros(spec, (1,), device=body.device)
+    add = lambda a, b: fd.add(spec, a, b)
 
     pow_x, xn = pshard_powers(spec, x, m, mesh)
-    local_suf = _suffix_sums(spec, fd.mul(spec, body, pow_x))  # (m, L)
-    tail_suf = _suffix_sums(spec, fd.mul(spec, tail, _tail_powers(spec, x, xn)))  # (4, L)
+    local_suf = scan(add, fd.mul(spec, body, pow_x), 0, reverse=True)  # (m, L)
+    tail_suf = scan(add, fd.mul(spec, tail, _tail_powers(spec, x, xn)), 0, reverse=True)  # (4, L)
 
     # offset_d = the totals of the shards after d
     gathered = mesh.all_gather(local_suf[0])  # (D, L)
-    offset = _tree_add(spec, gathered[d + 1:], axis=0) if d + 1 < D else zero[0]
+    offset = tree_reduce(add, gathered[d + 1:], 0) if d + 1 < D else zero[0]
     excl = torch.cat([local_suf[1:], zero])
     excl = fd.add(spec, excl, fd.add(spec, offset, tail_suf[0]))
 
@@ -345,14 +332,14 @@ def pdivide_by_linear(spec: FieldSpec, body: torch.Tensor, tail: torch.Tensor, x
 def pmsm_totals(fq_spec, b3, points, scalars, fr_bits: int, mesh: Mesh, c: int = 0,
                 groups: int = 0) -> torch.Tensor:
     """Sharded Pippenger up to the per-window totals ((B,) W, 3, L),
-    replicated: each rank accumulates its point shard (K4a; a tensor or an
+    replicated: each rank accumulates its point shard (K4a; an
     ``msm.CommitPoints``) and reduces its buckets, then the small per-rank
     window totals are all-gathered and summed with log2(D) rounds of K4
     adds."""
     tot = msm_mod.msm_totals(fq_spec, b3, points, scalars, fr_bits, c=c, groups=groups)
     if mesh.D == 1:
         return tot
-    return _tree_reduce_points(fq_spec, b3, mesh.all_gather(tot))
+    return tree_reduce(lambda a, b: ec.add(fq_spec, b3, a, b), mesh.all_gather(tot), 0)
 
 
 def pcommit_totals(fq_spec, b3, powers_shard, tail_points, coeffs_shard, tail_coeffs,
@@ -365,11 +352,10 @@ def pcommit_totals(fq_spec, b3, powers_shard, tail_points, coeffs_shard, tail_co
     is never weighted).  ``c`` must be the window size of the host fold
     (``msm.msm_window_size(n + 4)`` of the global n), so that window totals
     align across ranks.  coeffs (B, m, L) with tails (B, 4, L), or unbatched.
-    The points are tensors, or ``msm.CommitPoints`` of one key's copy.
+    The points are two ``msm.CommitPoints`` of one key's copy.
     """
-    body = msm_mod.as_commit_points(fq_spec, powers_shard)
-    tail = msm_mod.as_commit_points(fq_spec, tail_points)
-    points = msm_mod.CommitPoints(torch.cat([body.points, tail.points]))
+    points = msm_mod.CommitPoints(torch.cat([msm_mod.z1_points(powers_shard),
+                                             msm_mod.z1_points(tail_points)]))
     tc = tail_coeffs if mesh.d == 0 else torch.zeros_like(tail_coeffs)
     scalars = torch.cat([coeffs_shard, tc], dim=-2)
     return pmsm_totals(fq_spec, b3, points, scalars, fr_bits, mesh, c=c, groups=groups)

@@ -32,6 +32,7 @@ from ..fields import device as fd
 from ..ops import msm as msm_mod
 from ..proof_system.prover import PK_NAMES, RoundSchedule, grand_products, quotient_evals
 from ..utils.profiling import section
+from ..utils.scan import tree_reduce
 from . import ops as pops
 from .mesh import Mesh, shard_rows
 
@@ -199,16 +200,18 @@ class ShardedProver(RoundSchedule):
 
     def linearize(self, polys: BodyTail, scalars: torch.Tensor) -> BodyTail:
         spec = self.spec
+        add = lambda a, b: fd.add(spec, a, b)
         s = scalars[:, None, :]
-        return BodyTail(pops._tree_add(spec, fd.mul(spec, polys.body, s), axis=0),
-                        pops._tree_add(spec, fd.mul(spec, polys.tail, s), axis=0))
+        return BodyTail(tree_reduce(add, fd.mul(spec, polys.body, s), 0),
+                        tree_reduce(add, fd.mul(spec, polys.tail, s), 0))
 
     def open_batch(self, polys: BodyTail, point: int, eta: int) -> BodyTail:
         """eta-fold the batch and divide by (X - point): the KZG witness."""
         spec, p, vec = self.spec, self.p, self.vec
+        add = lambda a, b: fd.add(spec, a, b)
         eta_powers = vec([pow(eta, i, p) for i in range(polys.body.shape[0])])[:, None, :]
-        fb = pops._tree_add(spec, fd.mul(spec, polys.body, eta_powers), axis=0)
-        ft = pops._tree_add(spec, fd.mul(spec, polys.tail, eta_powers), axis=0)
+        fb = tree_reduce(add, fd.mul(spec, polys.body, eta_powers), 0)
+        ft = tree_reduce(add, fd.mul(spec, polys.tail, eta_powers), 0)
         return BodyTail(*pops.pdivide_by_linear(spec, fb, ft, vec([point])[0],
                                                 vec([pow(point, -1, p)])[0], self.mesh))
 

@@ -35,6 +35,7 @@ from ..fields import device as fd
 from ..ops import ntt
 from ..utils.domain import make_domain
 from ..utils.profiling import section, waiting
+from ..utils.scan import tree_reduce
 from .keys import ExtendedProverKey, ProverKey, VerifierKey
 from .proof import Proof, ProofEvaluations
 
@@ -555,8 +556,9 @@ class Prover(RoundSchedule):
         return _eval_many(spec, polys_xi, xi_powers), _eval_many(spec, polys_wxi, wxi_powers)
 
     def linearize(self, polys13: torch.Tensor, scalars13: torch.Tensor) -> torch.Tensor:
-        terms = fd.mul(self.spec, polys13, scalars13[:, None, :])
-        return _sum_rows(self.spec, terms)
+        spec = self.spec
+        terms = fd.mul(spec, polys13, scalars13[:, None, :])
+        return tree_reduce(lambda a, b: fd.add(spec, a, b), terms, 0)
 
     def open_batch(self, polys: torch.Tensor, point: int, eta: int) -> torch.Tensor:
         """eta-fold the polys and divide by (X - point): the KZG witness."""
@@ -569,7 +571,8 @@ class Prover(RoundSchedule):
         pt_inv = pow(point, -1, p)
         # [pt^-1, pt^-2, ..., pt^-m]
         pt_inv_powers = fd.mul(spec, fd.powers(spec, self.vec([pt_inv])[0], m), self.vec([pt_inv])[0])
-        folded = _sum_rows(spec, fd.mul(spec, polys, eta_powers[:, None, :]))
+        terms = fd.mul(spec, polys, eta_powers[:, None, :])
+        folded = tree_reduce(lambda a, b: fd.add(spec, a, b), terms, 0)
         return kzg.divide_by_linear(spec, folded, pt_powers, pt_inv_powers)
 
     def openings(self, aw_polys, xi: int, saw_polys, wxi: int, eta: int):
@@ -583,26 +586,6 @@ class Prover(RoundSchedule):
 # ---------------------------------------------------------------------------
 
 
-def _sum_rows(spec, terms: torch.Tensor) -> torch.Tensor:
-    """Field sum over axis 0 of (k, m, L) by pairwise halving."""
-    while terms.shape[0] > 1:
-        k = terms.shape[0]
-        half = k // 2
-        merged = fd.add(spec, terms[:half], terms[half : 2 * half])
-        terms = torch.cat([merged, terms[2 * half :]]) if k % 2 else merged
-    return terms[0]
-
-
 def _eval_many(spec, polys, powers):
     """Σ_j c_j x^j for each poly: elementwise mul + log-depth add-reduce."""
-    terms = fd.mul(spec, polys, powers)
-    m = terms.shape[1]
-    while m > 1:
-        half = (m + 1) // 2
-        lo = terms[:, :half]
-        hi = terms[:, half:m]
-        if hi.shape[1] < half:
-            hi = torch.nn.functional.pad(hi, (0, 0, 0, half - hi.shape[1]))
-        terms = fd.add(spec, lo, hi)
-        m = half
-    return terms[:, 0]
+    return tree_reduce(lambda a, b: fd.add(spec, a, b), fd.mul(spec, polys, powers), 1)
