@@ -6,13 +6,14 @@ card (it exits non-zero without one), ``nvcc`` and nothing else.
 
 Phases, one line each:
   1. device   — the card's name, and nvidia-smi's name and power limit;
-  2. build    — nvcc builds of the six kernel sources in csrc/ (in
+  2. build    — nvcc builds of the seven kernel sources in csrc/ (in
                 parallel), with ptxas's registers and spills for every
-                kernel instance (a K4a instance that spills fails) and
+                kernel instance (a K4a or K6 instance that spills fails) and
                 each kernel's SASS instruction mix;
                 each EC instance's resident blocks per SM and registers
-                from the card's occupancy call, and K4a's against the table
-                of ops/msm.py that its G rule reads (a mismatch fails);
+                from the card's occupancy call, and K4a's and K6's against
+                the tables of ops/msm.py that its G rule and its chunk rule
+                read (a mismatch fails);
   3. parity   — each kernel instance against its plain PyTorch version on
                 the same card tensors at the main paths' shapes (and
                 against Python ints on a sample), with its device time per
@@ -41,6 +42,12 @@ Phases, one line each:
                 n = 2^18 + 4, c = 8, B = 1, 2, 3, 6 on BN254's Fr, B = 3 on
                 BLS12-381's Fr, and c = 4 at n = 4,000, against the plain
                 version bit for bit, with its time against its byte bound;
+                after it K6 (the MSM's group merge, L = 16 on BN254, L = 24
+                on BLS12-381 and BLS12-377) on K4a's buckets at the same
+                n and batches, with the G rule's G, against its plain
+                version bit for bit and against K4's pairwise merge as
+                affine points, its time against its operation bound and
+                beside the K4 merge's time;
   4. golden   — the TinyCircuit proof on the card: 802 bytes, fixed sha256;
   5. withdraw — the withdraw circuit at HEIGHT=48, NOTES=3, TABLE=1024
                 (n = 2^18) on BN254: SRS setup, compile, cold and warm
@@ -119,7 +126,8 @@ import torch
 
 # the bounds' peak rates and operation counts (H100 SXM), and K4a's bounds
 from zkt_plonk_tpu_torch.tools.bounds import (
-    EC_ADD_OPS, EC_ADD_OPS_24, MODMUL_OPS, MODMUL_OPS_24, accumulate_bound, bound_ms, step_counts,
+    EC_ADD_OPS, EC_ADD_OPS_24, MODMUL_OPS, MODMUL_OPS_24, accumulate_bound, bound_ms, merge_bound,
+    step_counts,
 )
 from zkt_plonk_tpu_torch.utils import profiling
 
@@ -663,6 +671,83 @@ def parity_msm_digits(records, dev):
     records[key] = rec
 
 
+def parity_ec_bucket_merge(records, dev, curve="bn254", record=True):
+    """K6 at the prover's batches: n = 2^18 + 4, c = 8, B = 3, 1, 2, 6 with
+    the G rule's G (1024, 512, 512, 256 at B = 1, 2, 3, 6), on K4a's buckets
+    of random scalars over the curve's SRS points: ``ec_bucket_merge`` on
+    BN254 (L = 16), ``ec_bucket_merge/L24`` on the BLS12 curves.  Its words
+    equal ``bucket_merge_plain``'s at the chunk rule's count (one launch, or
+    two where that count is above one), and its sums K4's pairwise merge's
+    (``tree_reduce`` of ``ec.add``) as affine points in two rows; its time
+    behind the spin kernel against its operation bound, beside the K4
+    merge's time on the same buckets."""
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.ops import ec, msm
+    from zkt_plonk_tpu_torch.utils.scan import tree_reduce
+
+    ck = srs_1024(dev, curve)
+    ctx = ck.ctx
+    spec = ctx.fq_spec
+    L = spec.n_limbs
+    key = _cuda.instance("ec_bucket_merge", L)
+    fr_bits = ctx.curve.fr.modulus.bit_length()
+    top = int(ctx.fr_spec.modulus_limbs[-1])
+    gen = np.random.default_rng(53)
+    c = 8
+    K = (1 << (c - 1)) + 1
+    n = (1 << 18) + 4
+    W = msm.num_windows(fr_bits + 1, c)
+    pts = ck.powers[torch.arange(n, device=dev) % 1024].contiguous()
+    add = lambda a, b: ec.add(spec, ck.b3, a, b)
+    rec, worst = None, 0
+    for B in (3, 1, 2, 6):
+        G = msm.group_count(n, c, B, W, L)
+        limbs = gen.integers(0, 1 << 16, size=(B, n, 16), dtype=np.int64)
+        limbs[..., 15] = gen.integers(0, top, size=(B, n))
+        digits = msm.digit_rows(torch.from_numpy(limbs.astype(np.int32)).to(dev), c, fr_bits, G)
+        buckets = msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c)
+        del digits
+        C = msm.merge_chunks(G, B * W * (K - 1), L)
+        before = _cuda.launches[key]
+        got = msm.bucket_merge(spec, ck.b3, buckets)
+        if _cuda.launches[key] != before + (2 if C > 1 else 1):
+            raise AssertionError(f"bucket_merge on {curve} launched {key} "
+                                 f"{_cuda.launches[key] - before} times at {C} chunks")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = msm.bucket_merge_plain(spec, ck.b3, buckets, C)
+        end.record()
+        end.synchronize()
+        p_ms = start.elapsed_time(end)
+        err = max_abs_err(got, plain)
+        if err != 0:
+            raise AssertionError(f"{key} on {curve} at B={B} disagrees (max_abs_err {err})")
+        worst = max(worst, err)
+        del plain
+        tree = tree_reduce(add, buckets, 0)
+        for bw in (0, B * W - 1):
+            if ec.to_affine_host(spec, got[bw, 1:]) != ec.to_affine_host(spec, tree[bw, 1:]):
+                raise AssertionError(f"{key} on {curve} at B={B}: row {bw} differs from K4's merge")
+        del got, tree
+        k_ms = time_cuda(lambda: msm.bucket_merge(spec, ck.b3, buckets))
+        t_ms = time_cuda(lambda: tree_reduce(add, buckets, 0), reps=5, warmup=1)
+        b_ms, b_by = merge_bound(G, B * W, K, L)
+        shape = f"n=2^18+4,B={B},c={c},G={G}"
+        say("parity", kernel=key, curve=curve, shape=shape, chunks=C, ms=k_ms, k4_merge_ms=t_ms,
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, bound_share=round(b_ms / k_ms, 4),
+            max_abs_err=err)
+        if rec is None:  # the prover's middle batch
+            rec = dict(name=key, route="cuda", source="zkt_plonk_tpu_torch/csrc/ec_bucket_merge.cu",
+                       replaces="zkt_plonk_tpu/ops/msm.py:72-88 (ec_pallas.py:99)", ms=k_ms,
+                       plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del buckets
+    rec["max_abs_err"] = worst
+    if record:
+        records[key] = rec
+    torch.cuda.empty_cache()
+
+
 def _host_row(ck, pts_host, digits, g, bw, G, K):
     """Buckets of row (g, bw) by host affine arithmetic."""
     from zkt_plonk_tpu_torch.curves import curve_host as ch
@@ -1079,7 +1164,8 @@ def sharded_proofs(phase, dev, inst, compiled, circuit, pub_inputs, want, single
         nvidia_smi=f"'{nvidia_smi_line()}'")
     say(phase, launches_per_warm_proof=json.dumps({"single_device": single_launches,
                                                    "sharded_d1": sharded_launches}))
-    # the commits run K4a at the key's width, each batch's digits from K5
+    # the commits run K4a at the key's width, each batch's digits from K5 and
+    # its merge on K6
     key = _cuda.instance("ec_bucket_accumulate", inst.ctx.fq_spec.n_limbs)
     for path, got in (("single_device", single_launches), ("sharded_d1", sharded_launches)):
         if got.get(key, 0) == 0:
@@ -1087,6 +1173,10 @@ def sharded_proofs(phase, dev, inst, compiled, circuit, pub_inputs, want, single
         if got.get("msm_digits", 0) != got[key]:
             raise AssertionError(f"{phase} {path}: {got[key]} K4a launches, "
                                  f"{got.get('msm_digits', 0)} of msm_digits")
+        merges = got.get(_cuda.instance("ec_bucket_merge", inst.ctx.fq_spec.n_limbs), 0)
+        if not got[key] <= merges <= 2 * got[key]:
+            raise AssertionError(f"{phase} {path}: {got[key]} K4a launches, {merges} of K6: "
+                                 f"want one or two a batch")
 
 
 def device_busy_share(fn):
@@ -1657,15 +1747,18 @@ def ptxas_report(name: str):
 
 
 def occupancy_report() -> None:
-    """Resident blocks per SM and registers of K4 and K4a at L = 16 and 24,
-    from the card; each K4a instance's blocks must equal ``ops/msm.py``'s
+    """Resident blocks per SM and registers of K4, K4a and K6 at L = 16 and
+    24, from the card; each K4a instance's blocks must equal ``ops/msm.py``'s
     ``ACC_RESIDENT_BLOCKS``, from which ``msm.group_count`` sizes its bucket
-    rows."""
+    rows, and each K6 instance's ``MERGE_RESIDENT_BLOCKS``, from which
+    ``msm.merge_chunks`` sizes its chunks."""
     from zkt_plonk_tpu_torch import _cuda
     from zkt_plonk_tpu_torch.ops import msm
 
     table = {_cuda.instance("ec_bucket_accumulate", L): msm.ACC_RESIDENT_BLOCKS[L]
              for L in (16, 24)}
+    table.update({_cuda.instance("ec_bucket_merge", L): msm.MERGE_RESIDENT_BLOCKS[L]
+                  for L in (16, 24)})
     for key in _cuda.OCCUPANCY_INSTANCES:
         blocks, regs = _cuda.occupancy(key)
         say("occupancy", kernel=key, threads=msm.ACC_THREADS, blocks_per_sm=blocks,
@@ -1706,8 +1799,8 @@ def main() -> int:
     for name in _cuda.KERNELS:
         for fn, regs, st, ld in ptxas_report(name):
             say("ptxas", kernel=name, fn=fn, registers=regs, spill_stores=st, spill_loads=ld)
-            if fn.startswith("bucket_accumulate") and st + ld:
-                raise AssertionError(f"K4a's {fn} spills ({st} B stored, {ld} B loaded)")
+            if fn.startswith(("bucket_accumulate", "ec_bucket_merge")) and st + ld:
+                raise AssertionError(f"{fn} spills ({st} B stored, {ld} B loaded)")
     sass_mix()
     occupancy_report()
 
@@ -1726,6 +1819,9 @@ def main() -> int:
         parity_ec_bucket_accumulate(records, dev)
         parity_ec_bucket_accumulate(records, dev, "bls12_381")
         parity_ec_bucket_accumulate(records, dev, "bls12_377", record=False)
+        parity_ec_bucket_merge(records, dev)
+        parity_ec_bucket_merge(records, dev, "bls12_381")
+        parity_ec_bucket_merge(records, dev, "bls12_377", record=False)
         say("total", after="parity", wall_s=round(time.perf_counter() - T_START, 1))
 
     # the main paths, each counted from zero around its own run

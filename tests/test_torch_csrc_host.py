@@ -39,7 +39,12 @@ shared-memory loads and stores as plain ones) and a stub
   (16-byte vectors and single limbs), packed and unpacked stores (n_pad
   even and odd), windows of 4, 5, 8 and 11 bits (spanning two limbs and
   running past the limbs), 14 and 16 limbs, on 0, 1, r - 1, runs of
-  2^(c-1), 2^(c-1) + 1 and 2^c - 1 windows and random scalars.
+  2^(c-1), 2^(c-1) + 1 and 2^c - 1 windows and random scalars;
+* kernel K6's group merge (the device part of ``csrc/ec_bucket_merge.cu``,
+  its grid run one thread after another, the 12-word instance's stage a
+  static array) against ``ops/msm.bucket_merge_plain``, limb for limb, on
+  the three curves at 1, 2 and 3 chunks a column (the second launch over
+  the partial sums included).
 
 Without ``g++`` the module's fixtures skip.
 """
@@ -584,3 +589,82 @@ def test_msm_digits_match_digit_rows_plain(digits_lib, c, B, n, G, Lr, vec):
     digits_lib.host_msm_digits(_ptr(S), _ptr(got), B, n, Lr, want.shape[1], c,
                                want.shape[0] // B, int(vec))
     np.testing.assert_array_equal(got, want)
+
+
+# kernel K6 on the host: the shared-memory stage of the 12-word instance a
+# static array (each thread uses its own slice), and the grid walked one
+# thread after another (its threads share nothing)
+MERGE_STUB = DIGITS_STUB + r"""
+#define __shared__ static
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return uint4{x, y, z, w}; }
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz((unsigned)v); }
+"""
+
+MERGE_SHIM = r"""
+#include "merge.cuh"
+
+extern "C" void host_merge(int L, const int32_t* in, int32_t* out, int G, int C, int BW, int K,
+                           int b3, const uint32_t* h) {
+  const unsigned T = zk::MERGE_THREADS;
+  const long long threads = (long long)C * BW * (K - 1);
+  blockDim = dim3{T, 1, 1};
+  gridDim = dim3{(unsigned)((threads + T - 1) / T), 1, 1};
+  for (unsigned x = 0; x < gridDim.x; ++x)
+    for (unsigned t = 0; t < T; ++t) {
+      blockIdx = uint3{x, 0, 0};
+      threadIdx = uint3{t, 0, 0};
+      if (L == 16) zk::ec_bucket_merge_kernel<16>(in, out, G, C, BW, K, b3, zk::consts_from_host<16>(h));
+      if (L == 24) zk::ec_bucket_merge_kernel<24>(in, out, G, C, BW, K, b3, zk::consts_from_host<24>(h));
+    }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def merge_lib(tmp_path_factory):
+    """K6's device code: ``csrc/ec_bucket_merge.cu`` up to its C launcher."""
+    device_part = (CSRC / "ec_bucket_merge.cu").read_text().split('extern "C"')[0]
+    headers = {name: (CSRC / name).read_text() for name in ("field.cuh", "ec.cuh")}
+    lib = _host_build(tmp_path_factory, "host_merge",
+                      {**headers, "cuda_runtime.h": MERGE_STUB, "merge.cuh": device_part}, MERGE_SHIM)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.host_merge.argtypes = [I, P, P, I, I, I, I, I, P]
+    return lib
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3])
+@pytest.mark.parametrize("curve", CURVES)
+def test_bucket_merge_kernel_matches_plain_limb_for_limb(merge_lib, curve, chunks):
+    """Both launches of K6 (``chunks`` partial sums a column, then one chain
+    over them) give ``msm.bucket_merge_plain``'s limbs: the sum's
+    Montgomery words, never converted, and the identity in row 0.  G = 7
+    groups of BW = 2 rows of K = 9 buckets: the identity, runs of one point
+    (doublings), P beside -P, coordinates at 0, 1 and p - 1, and random
+    projective points."""
+    ctx = make_context(curve)
+    spec = ctx.fq_spec
+    L = spec.n_limbs
+    p = spec.modulus
+    b3 = ec.b3_const(spec, int(ctx.curve.b), device="cpu")
+    rng = random.Random(chunks * 31 + L)
+    G, BW, K = 7, 2, 9
+    pts = [pt for pair in _pairs(curve, rng) for pt in pair]
+    P = ch.scalar_mul(ctx.g1, 5)
+    runs = [(int(P[0]), int(P[1]), 1)] * G
+    negs = [(int(P[0]), int(P[1]) if g % 2 else p - int(P[1]), 1) for g in range(G)]
+    cols = [[(0, 1, 0)] * G, runs, negs] + [rng.sample(pts, G) for _ in range(BW * K - 3)]
+    vals = [c for g in range(G) for col in cols for c in col[g]]
+    buckets = torch.from_numpy(ints_to_array(vals, L).astype(np.int32)).reshape(G, BW, K, 3, L)
+    want = msm.bucket_merge_plain(spec, b3, buckets, chunks).numpy()
+
+    consts = _cuda.ec_field_consts(spec)
+    src = np.ascontiguousarray(buckets.numpy())
+    part = np.full((chunks, BW, K, 3, L), 0x5A5A, dtype=np.int32)  # every limb must be written
+    merge_lib.host_merge(L, _ptr(src), _ptr(part), G, chunks, BW, K, b3.value, consts)
+    got = part
+    if chunks > 1:
+        got = np.full((1, BW, K, 3, L), 0x5A5A, dtype=np.int32)
+        merge_lib.host_merge(L, _ptr(part), _ptr(got), chunks, 1, BW, K, b3.value, consts)
+    np.testing.assert_array_equal(got[0], want)

@@ -137,13 +137,13 @@ def test_timing_sections_change_nothing(golden):
     """With the span recorder on, one proof records its statement and its
     prover's seven round spans and the spans inside them, with their
     parents and one request id, counts what it stages, waits for and asks
-    of K4a, and still proves the golden bytes."""
+    of K4a and K6, and still proves the golden bytes."""
     from zkt_plonk_tpu_torch import _cuda
     from zkt_plonk_tpu_torch.ops import msm
     from zkt_plonk_tpu_torch.utils import profiling
 
     inst, compiled, _ = golden
-    c0, adds0 = profiling.snapshot(), _cuda.work["ec_bucket_adds"]
+    c0, adds0, merges0 = profiling.snapshot(), _cuda.work["ec_bucket_adds"], _cuda.work["ec_merge_adds"]
     profiling.drain()
     profiling.enable()
     try:
@@ -186,8 +186,13 @@ def test_timing_sections_change_nothing(golden):
     # B x W x n per batch: 6 + 2 + 3 + 1 + 1 polynomials of n + 4 = 68
     # coefficients, W = 64 windows of c = 4 bits
     fr_bits = inst.ctx.curve.fr.modulus.bit_length()
-    want = 13 * msm.num_windows(fr_bits + 1, msm.msm_window_size(68)) * 68
-    assert _cuda.work["ec_bucket_adds"] - adds0 == want
+    c = msm.msm_window_size(68)
+    W = msm.num_windows(fr_bits + 1, c)
+    assert _cuda.work["ec_bucket_adds"] - adds0 == 13 * W * 68
+    # and the group merge (G - 1) x B x W x (K - 1) per batch
+    K = (1 << (c - 1)) + 1
+    merge = sum((msm.group_count(68, c, B, W, 16) - 1) * B * W * (K - 1) for B in (6, 2, 3, 1, 1))
+    assert _cuda.work["ec_merge_adds"] - merges0 == merge
 
 
 def test_a_proof_with_the_recorder_off_records_nothing(golden):

@@ -543,7 +543,8 @@ def test_every_launch_is_counted_through_the_locked_counter():
     assert wrappers == {
         "fields/cuda.py:binop": 1, "fields/cuda.py:pow_chain": 1,
         "ops/ec_cuda.py:add": 1, "ops/msm.py:bucket_accumulate": 1,
-        "ops/msm.py:digit_rows": 1, "ops/ntt_mr.py:fused_pass": 1,
+        "ops/msm.py:digit_rows": 1, "ops/msm.py:bucket_merge": 1,
+        "ops/ntt_mr.py:fused_pass": 1,
     }
     assert sorted(writes) == [("_cuda.py", "count", True), ("_cuda.py", "reset_launches", True)]
 

@@ -19,8 +19,10 @@ that a kernel's caller asks of it, computed from the call's arguments
 whatever implements it: ``ec_bucket_adds``, the B x n x W bucket adds of
 each ``ops/msm.bucket_accumulate`` call (B scalar vectors of W windows over
 n points, before padding), and ``msm_digit_codes``, the B x W x n_pad
-int16 codes of each ``ops/msm.digit_rows`` call (padding included), on
-the card and in the plain version alike.
+int16 codes of each ``ops/msm.digit_rows`` call (padding included), and
+``ec_merge_adds``, the (G - 1) x BW x (K - 1) complete adds of each
+``ops/msm.bucket_merge`` call (G groups of BW rows of K buckets, row
+k = 0 never summed), on the card and in the plain version alike.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 
 KERNELS = (
     "fp_binop", "fp_pow_chain", "ntt_col_pass", "ec_add_complete", "ec_bucket_accumulate",
-    "msm_digits",
+    "msm_digits", "ec_bucket_merge",
 )
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -51,12 +53,12 @@ NVCC_FLAGS = [
 # the instances beyond each kernel's L = 16 lazy one
 EXTRA_INSTANCES = (
     "fp_binop/L24", "fp_pow_chain/L24", "fp_pow_chain/strict", "ntt_col_pass/strict",
-    "ec_add_complete/L24", "ec_bucket_accumulate/L24",
+    "ec_add_complete/L24", "ec_bucket_accumulate/L24", "ec_bucket_merge/L24",
 )
 INSTANCES = KERNELS + EXTRA_INSTANCES
 
 launches: Dict[str, int] = {name: 0 for name in INSTANCES}
-work: Dict[str, int] = {"ec_bucket_adds": 0, "msm_digit_codes": 0}
+work: Dict[str, int] = {"ec_bucket_adds": 0, "msm_digit_codes": 0, "ec_merge_adds": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -183,6 +185,7 @@ def _declare(name: str, cdll: ctypes.CDLL) -> ctypes.CDLL:
         "ec_add_complete": {"zk_ec_add_complete": [I, P, P, P, LL, I, LLP, LLP, LLP, I, UP, P]},
         "ec_bucket_accumulate": {"zk_ec_bucket_accumulate": acc},
         "msm_digits": {"zk_msm_digits": [P, P, I, LL, I, LL, I, I, P]},
+        "ec_bucket_merge": {"zk_ec_bucket_merge": [I, P, P, I, I, I, I, I, UP, P]},
     }
     occ = [I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     fns = dict(sigs[name])
@@ -199,6 +202,7 @@ def _declare(name: str, cdll: ctypes.CDLL) -> ctypes.CDLL:
 # the instances whose libraries report their occupancy
 OCCUPANCY_INSTANCES = (
     "ec_add_complete", "ec_add_complete/L24", "ec_bucket_accumulate", "ec_bucket_accumulate/L24",
+    "ec_bucket_merge", "ec_bucket_merge/L24",
 )
 
 

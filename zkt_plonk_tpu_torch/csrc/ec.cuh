@@ -1,6 +1,7 @@
 // Complete projective point addition (Renes-Costello-Batina 2015,
-// Algorithm 7, a = 0) on 32-bit words, shared by K4 (ec_add_complete) and
-// K4a (ec_bucket_accumulate), on the word arithmetic of field.cuh.
+// Algorithm 7, a = 0) on 32-bit words, shared by K4 (ec_add_complete), K4a
+// (ec_bucket_accumulate) and K6 (ec_bucket_merge), on the word arithmetic
+// of field.cuh.
 //
 // The formula needs 12 products: the six of layer 1 each take one
 // Montgomery reduction; the six of layer 3 pair up into X3, Y3, Z3 =
@@ -377,8 +378,11 @@ constexpr int STAGED_VALUES = 7;
 //   memory a quad at a time (mont_staged);
 // * layers 2 and 3 as rcb_finish_staged.
 // Layer 1 holds at most five 12-word products and one sum in registers;
-// layer 3 two operands and a sum.
-template <int L, class Emit>
+// layer 3 two operands and a sum.  UNROLL, for a caller with registers to
+// spare (the group merge, ec_bucket_merge.cu), runs X1X2 and Y1Y2 as a pair
+// (mont_staged_pair) and unrolls the other products' loops, as
+// rcb_add_mixed_staged does; the same canonical outputs.
+template <int L, bool UNROLL = false, class Emit>
 __device__ __forceinline__ void rcb_add_staged(const Staged<L / 2>& S, int b3,
                                                const FieldConsts<L>& fc, Emit&& emit) {
   constexpr int NW = L / 2;
@@ -388,7 +392,7 @@ __device__ __forceinline__ void rcb_add_staged(const Staged<L / 2>& S, int b3,
   auto same = [&](uint32_t r[NW], int i) {  // P_i Q_i
     uint32_t b[NW];
     S.load(3 + i, b);
-    mont_staged<L, false>(r, S, i, b, i, b, fc);
+    mont_staged<L, false, UNROLL>(r, S, i, b, i, b, fc);
   };
   auto cross = [&](uint32_t r[NW], int i, int j) {  // (P_i + P_j)(Q_i + Q_j)
     uint32_t x[NW], y[NW], v[NW];
@@ -399,10 +403,17 @@ __device__ __forceinline__ void rcb_add_staged(const Staged<L / 2>& S, int b3,
     S.load(3 + i, x);
     S.load(3 + j, y);
     add_nr<NW>(v, x, y);
-    mont_staged<L, false>(r, S, SUMV, v, SUMV, v, fc);
+    mont_staged<L, false, UNROLL>(r, S, SUMV, v, SUMV, v, fc);
   };
-  same(t0, 0);
-  same(t1, 1);
+  if constexpr (UNROLL) {
+    uint32_t x2[NW], y2[NW];
+    S.load(3, x2);
+    S.load(4, y2);
+    mont_staged_pair<L>(t0, 0, x2, t1, 1, y2, S, fc);  // X1 X2, Y1 Y2
+  } else {
+    same(t0, 0);
+    same(t1, 1);
+  }
   same(t2, 2);
   cross(t3, 0, 1);
   cross(t4, 1, 2);
@@ -413,7 +424,7 @@ __device__ __forceinline__ void rcb_add_staged(const Staged<L / 2>& S, int b3,
   sub_mod<NW>(t4, t4, t2, fc.p2);  // Y1Z2 + Y2Z1
   sub_mod<NW>(t5, t5, t0, fc.p2);
   sub_mod<NW>(t5, t5, t2, fc.p2);  // X1Z2 + X2Z1
-  rcb_finish_staged<L, false>(S, t0, t1, t2, t3, t4, t5, b3, fc, emit);
+  rcb_finish_staged<L, UNROLL>(S, t0, t1, t2, t3, t4, t5, b3, fc, emit);
 }
 
 // Staged values of rcb_add_mixed_staged: P = (X1 : Y1 : Z1) in 0-2, Q's

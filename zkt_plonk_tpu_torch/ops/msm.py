@@ -1,9 +1,9 @@
 """Multi-scalar multiplication on device (Pippenger with grouped buckets).
 
 Same method as ``zkt_plonk_tpu/ops/msm.py`` — signed c-bit windows, G
-groups of private bucket arrays walked in S = n/G serial steps, group merge
-by pairwise halving, the weighted bucket sum as a suffix scan and a sum,
-the window fold on the host — with the bucket layout chosen for the card:
+groups of private bucket arrays walked in S = n/G serial steps, a group
+merge, the weighted bucket sum as a suffix scan and a sum, the window fold
+on the host — with the bucket layout chosen for the card:
 
 * a whole BATCH of B scalar vectors over the same points accumulates in
   one pass (the commit batches of the prover share the SRS points);
@@ -14,8 +14,11 @@ the window fold on the host — with the bucket layout chosen for the card:
   Z = 1 copy of a key's points made once (``commit_points``), or of a bare
   points tensor once per ``msm`` call; so a step is a mixed add, a
   bucket's first hit two products and a padding step three;
-* the bucket tensor is laid out group-major (G, B*W, K) so every merge
-  step adds two contiguous halves; the merges and the suffix scan are K4;
+* the group merge is kernel K6 (``bucket_merge``), one or two launches
+  per batch: a thread sums one bucket column over a chunk of the groups,
+  and the bucket tensor is laid out group-major (G, B*W, K) so that a
+  warp's columns of one group are neighbours; the suffix scan and the final
+  sum are K4;
 * digits are computed in bulk before the accumulation, as int16 codes, by
   kernel K5 (``digit_rows``), one launch per batch.
 
@@ -25,6 +28,8 @@ this module's own.
 
 from __future__ import annotations
 
+import math
+from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -32,7 +37,7 @@ import torch
 
 from .. import _cuda
 from ..fields import cuda as fc
-from ..fields.limbs import LIMB_BITS, FieldSpec
+from ..fields.limbs import LIMB_BITS, FieldSpec, int_to_limbs
 from ..utils import profiling
 from ..utils.scan import scan, tree_reduce
 from . import ec, ec_cuda
@@ -280,6 +285,104 @@ def digit_rows(scalars: torch.Tensor, c: int, fr_bits: int, G: int) -> torch.Ten
     return out
 
 
+# K6 (``bucket_merge``) runs MERGE_THREADS-thread blocks; resident blocks per
+# SM of each instance on an H100, from ptxas's register count (PERF.md).
+# chip_smoke.py holds the table against the card's occupancy call; a table
+# rather than the call, so that the CPU path picks the same chunk count,
+# and so the same words, as the card.
+MERGE_THREADS = 128
+MERGE_RESIDENT_BLOCKS = {16: 3, 24: 3}
+
+
+def merge_chunks(G: int, columns: int, limbs: int) -> int:
+    """The chunks C that K6's first launch splits each of ``columns`` bucket
+    columns' G groups into, at least 1 and the smaller of
+    * as many as one wave of the instance's resident threads holds
+      (columns x C of them): the prover's batches, whose columns fill the
+      card in a few chunks;
+    * sqrt(G): where the columns are few, a thread's chain of G/C adds and
+      the second launch's C - 1 are about as long."""
+    resident = MERGE_RESIDENT_BLOCKS[limbs] * MERGE_THREADS * ACC_SMS
+    return max(1, min(resident // columns, math.isqrt(G)))
+
+
+@lru_cache(maxsize=None)
+def _montgomery_scales(spec: FieldSpec, device: torch.device):
+    """R^-1 and R mod p (R = 2^(16 L)) as int64 limbs."""
+    p, L = spec.modulus, spec.n_limbs
+    R = 1 << (LIMB_BITS * L)
+    return tuple(torch.tensor(int_to_limbs(v, L).astype(np.int64), device=device)
+                 for v in (pow(R, -1, p), R % p))
+
+
+def _merge_pass_plain(spec: FieldSpec, b3: ec.B3, buckets: torch.Tensor, C: int) -> torch.Tensor:
+    """One launch of K6 in plain PyTorch: (G, BW, K, 3, L) -> (C, BW, K, 3,
+    L).  Chunk j sums groups floor(jG/C) .. floor((j+1)G/C) - 1 of each
+    column k >= 1 in order, on the buckets' canonical limbs read as
+    Montgomery words (the values times R^-1), and writes the canonical
+    words of the sum (its values times R); row 0 is the identity."""
+    G, BW, K, _, L = buckets.shape
+    rinv, rmod = _montgomery_scales(spec, buckets.device)
+    # the values of groups ``rows``, one step's operands at a time
+    words = lambda rows: fc.mul64(spec, buckets[rows, :, 1:].to(torch.int64), rinv).to(torch.int32)
+    bounds = torch.tensor([j * G // C for j in range(C + 1)], device=buckets.device)
+    first, lens = bounds[:-1], bounds[1:] - bounds[:-1]
+    acc = words(first)  # (C, BW, K - 1, 3, L)
+    for s in range(1, int(lens.max())):
+        live = lens > s
+        acc[live] = ec_cuda.add_plain(spec, b3.limbs, acc[live], words(first[live] + s))
+    out = ec.identity(spec, (C, BW, K), device=buckets.device).clone()
+    out[:, :, 1:] = fc.mul64(spec, acc.to(torch.int64), rmod).to(torch.int32)
+    return out
+
+
+def bucket_merge_plain(spec: FieldSpec, b3: ec.B3, buckets: torch.Tensor, chunks: int) -> torch.Tensor:
+    """The plain PyTorch version of K6: the same adds in the same order,
+    so the same words.  ``chunks`` partial sums a column, then one chain
+    over them where there are several."""
+    out = _merge_pass_plain(spec, b3, buckets, chunks)
+    return (_merge_pass_plain(spec, b3, out, 1) if chunks > 1 else out)[0]
+
+
+def bucket_merge(spec: FieldSpec, b3: ec.B3, buckets: torch.Tensor) -> torch.Tensor:
+    """The group merge: (G, BW, K, 3, L) buckets of canonical limbs ->
+    (BW, K, 3, L), bucket (bw, k) the sum over the G groups for k >= 1 (as
+    canonical limbs of some projective representative) and row k = 0 the
+    identity, since the MSM never weights it.  Kernel K6
+    (``ec_bucket_merge``) on the card, one launch with ``merge_chunks``
+    chunks a column and, where that is more than one, a second over the
+    partial sums; ``bucket_merge_plain`` on the CPU."""
+    L = spec.n_limbs
+    if buckets.dtype != torch.int32 or buckets.dim() != 5 or tuple(buckets.shape[3:]) != (3, L):
+        raise ValueError(
+            f"buckets: expected (G, BW, K, 3, {L}) int32, got {tuple(buckets.shape)} {buckets.dtype}")
+    G, BW, K = buckets.shape[:3]
+    if G < 1 or BW < 1 or K < 2:
+        raise ValueError(f"buckets: need G, BW >= 1 and K >= 2, got {(G, BW, K)}")
+    if buckets.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"buckets on {buckets.device}")
+    C = merge_chunks(G, BW * (K - 1), L)
+    key = _cuda.instance("ec_bucket_merge", L)
+    _cuda.count_work("ec_merge_adds", (G - 1) * BW * (K - 1))
+    if buckets.device.type == "cpu":
+        return bucket_merge_plain(spec, b3, buckets, C)
+    if not 0 <= b3.value < 256:
+        raise ValueError("ec_bucket_merge needs 3b < 256")
+    consts = _cuda.ec_field_consts(spec)
+    fn = _cuda.lib("ec_bucket_merge").zk_ec_bucket_merge
+
+    def launch(src: torch.Tensor, groups: int, chunks: int) -> torch.Tensor:
+        out = torch.empty((chunks, BW, K, 3, L), dtype=torch.int32, device=src.device)
+        err = fn(L, src.data_ptr(), out.data_ptr(), groups, chunks, BW, K, b3.value, consts,
+                 _cuda.stream_ptr(src))
+        _cuda.check(err, key)
+        _cuda.count(key)
+        return out
+
+    out = launch(buckets.contiguous(), G, C)
+    return (launch(out, C, 1) if C > 1 else out)[0]
+
+
 class CommitPoints(NamedTuple):
     """An MSM's (n, 3, L) points with Z = 1, as K4a takes them
     (``commit_points``): the one form of points the MSM functions below
@@ -308,9 +411,10 @@ def _accumulate(fq_spec, b3, points: CommitPoints, scalars, fr_bits, c, G):
 def _reduce_buckets(fq_spec, b3, buckets):
     """(G, BW, K, 3, L) group buckets -> (BW, 3, L) weighted totals Σ k·B_k
     = Σ_{k>=1} SS_k with SS the suffix scan over buckets (the k = 0
-    bucket, which holds the padding, is never summed)."""
+    bucket, which holds the padding, is never summed): the group merge on
+    K6, the scan and the sum on K4."""
     add = lambda a, b: ec.add(fq_spec, b3, a, b)
-    Bk = tree_reduce(add, buckets, 0)  # (BW, K, 3, L)
+    Bk = bucket_merge(fq_spec, b3, buckets)  # (BW, K, 3, L)
     SS = scan(add, Bk, 1, reverse=True)
     return tree_reduce(add, SS[:, 1:].transpose(0, 1).contiguous(), 0)
 

@@ -87,3 +87,17 @@ def digits_bound(B: int, n: int, Lr: int, W: int, n_pad: int):
     """K5: the B x n scalars' int32 limbs read once, the (B*W, n_pad) int16
     codes written once; no multiplies."""
     return bound_ms(4 * B * n * Lr + 2 * B * W * n_pad, 0)
+
+
+# ---------------------------------------------------------------------------
+# K6, the MSM's group merge (ops/msm.py bucket_merge)
+# ---------------------------------------------------------------------------
+
+
+def merge_bound(G: int, BW: int, K: int, L: int = 16):
+    """K6 over (G, BW, K) buckets at L limbs: (G - 1) x BW x (K - 1)
+    complete adds (row k = 0 is never summed), each bucket of the rows
+    k >= 1 read once and the (BW, K) sums written once."""
+    ops = (G - 1) * BW * (K - 1) * (EC_ADD_OPS_24 if L == 24 else EC_ADD_OPS)
+    nbytes = 3 * 4 * L * BW * (G * (K - 1) + K)
+    return bound_ms(nbytes, ops)

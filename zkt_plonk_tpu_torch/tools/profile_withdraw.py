@@ -73,9 +73,11 @@ from zkt_plonk_tpu_torch.utils.profiling import (
     union)
 
 # device kernel names of the MSM's EC kernels (csrc/ec_bucket_accumulate.cu,
-# csrc/ec_add_complete.cu), every instance, and of the NTT (csrc/ntt_col_pass.cu)
+# csrc/ec_bucket_merge.cu, csrc/ec_add_complete.cu), every instance, and of
+# the NTT (csrc/ntt_col_pass.cu)
 KERNELS = {
     "K4a": ("bucket_accumulate_affine_kernel",),
+    "K6": ("ec_bucket_merge_kernel",),
     "K4": ("ec_add_complete_kernel", "ec_add_staged_kernel"),
     "K3": ("ntt_fused_pass_kernel",),
 }
