@@ -53,8 +53,10 @@ Phases, one line each:
                 (n = 2^18) on BN254: SRS setup, compile, cold and warm
                 prove, verify, the warm proof again through ShardedProver
                 on a world-size-1 NCCL mesh (cold, then warm; the same
-                bytes; it verifies), a tampered public input that must
-                raise, the launch count of every kernel instance over this
+                bytes; it verifies), the root and the last nullifier each
+                tampered, which must raise, the warm proof's counters
+                ``circuit_gates`` and ``domain_rows`` equal to the setup
+                composer's gates and bound, the launch count of every kernel instance over this
                 main path, and the launches inside each of its NTTs (D of
                 K3, nothing else); then BatchProver with 3 rows sharing the
                 card (a size-1 NCCL group and a CUDA stream each, rows in
@@ -103,8 +105,20 @@ Phases, one line each:
                 flips, scans and the cross-rank MSM tree on CUDA tensors),
                 byte-equal to the single-device proof, with each rank's
                 launches;
+ 11. h64_n4   — the reference CLI's largest withdraw and its sizes: K3's
+                coset forward and inverse transforms at 2^19 (2
+                polynomials) and 2^21 (1), each against the chain of plain
+                passes on the same card tensors; K5, K4a and K6 at
+                n = 2^19 + 4, c = 8, B = 1, 2, 3, 6 with the G rule's G,
+                each against its plain version bit for bit; then the
+                withdraw at HEIGHT=64, NOTES=4, TABLE=1024 on BN254 + KZG
+                + Merlin over an SRS of 2^21 + 1 points (n = 2^19, the
+                configuration ``bn254_kzg_withdraw_h64_n4``): phase 5's
+                proofs and checks without the sharded, batch and staged
+                proofs (349,702 gates on 2^19 rows), its sha256 and the
+                peak device memory;
 then one JSON line of kernel records, one per instance (launches summed
-over the main paths of phases 5-10, each counted from zero around its own
+over the main paths of phases 5-11, each counted from zero around its own
 run), nvidia-smi's line, and the result line.
 """
 
@@ -871,6 +885,124 @@ def parity_ec_bucket_accumulate(records, dev, curve="bn254", log_n=18, record=Tr
     torch.cuda.empty_cache()
 
 
+def parity_ntt_at(dev, log_n, nb):
+    """K3 (lazy, BN254's Fr) at a size the n = 2^18 phases do not reach: the
+    coset forward and inverse transforms of nb polynomials of 2^log_n, each
+    D launches of K3 and nothing else, against the chain of plain passes
+    (``fused_pass_plain``) on the same card tensors; the round trip; the
+    forward transform at three points against host Horner evaluations."""
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.fields import BN254_FR
+    from zkt_plonk_tpu_torch.fields.limbs import array_to_ints
+    from zkt_plonk_tpu_torch.ops import ntt_mr
+    from zkt_plonk_tpu_torch.utils.domain import make_domain
+
+    key = "ntt_col_pass"
+    dom = make_domain(BN254_FR, 1 << log_n)
+    spec, n, p = dom.spec, dom.size, dom.modulus
+    plans = dom.plan(dev)
+    X = random_limbs(spec, nb * n, np.random.default_rng(log_n)).reshape(nb, n, 16)
+    x = torch.from_numpy(X).to(dev)
+    outs = {}
+    for name, plan in (("coset_fft", plans.coset_fwd), ("coset_ifft", plans.coset_inv)):
+        before = dict(_cuda.launches)
+        got = ntt_mr.transform(spec, plan, x)
+        launched = launch_delta(before)
+        if launched != {key: len(plan.Fs)}:
+            raise AssertionError(f"({nb}, 2^{log_n}) {name} launched {launched}")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = x
+        for d in range(len(plan.Fs)):
+            plain = ntt_mr.fused_pass_plain(spec, plan, d, plain, nb)
+        end.record()
+        end.synchronize()
+        err = max_abs_err(got, plain)
+        if err != 0:
+            raise AssertionError(f"{key} ({nb}, 2^{log_n}) {name} disagrees (max_abs_err {err})")
+        del plain
+        k_ms = time_cuda(lambda: ntt_mr.transform(spec, plan, x), reps=5, warmup=1)
+        b_ms, b_by = transform_bound(dom, name, nb)
+        say("parity", kernel=key, shape=f"({nb},2^{log_n}) {name}",
+            factors="x".join(str(F) for F in plan.Fs), ms=k_ms,
+            plain_ms=start.elapsed_time(end), bound_ms=b_ms, bound_by=b_by,
+            share=round(b_ms / k_ms, 3), max_abs_err=err)
+        outs[name] = got
+    if not torch.equal(ntt_mr.transform(spec, plans.coset_inv, outs["coset_fft"]), x):
+        raise AssertionError(f"coset_ifft(coset_fft(x)) != x at 2^{log_n}")
+    coeffs = array_to_ints(X[0])
+    fwd = outs["coset_fft"][0].cpu().numpy()
+    for k in (0, n // 3, n - 1):
+        want = _horner(coeffs, dom.coset_gen * pow(dom.group_gen, k, p) % p, p)
+        if array_to_ints(fwd[k : k + 1])[0] != want:
+            raise AssertionError(f"coset_fft at 2^{log_n} wrong at index {k}")
+    del x, outs
+    torch.cuda.empty_cache()
+
+
+def parity_msm_at(dev, log_n):
+    """The MSM's kernels at n = 2^log_n + 4, c = 8, at the prover's batches
+    B = 1, 2, 3, 6 with the G rule's G: K5's digit codes, K4a's buckets and
+    K6's merged columns, each against its plain version on the same card
+    tensors (``digit_rows_plain``, ``bucket_accumulate_plain``,
+    ``bucket_merge_plain`` at the chunk rule's count), bit for bit, with
+    each kernel's time.  Random BN254 scalars, with 0, 1 and r - 1 in the
+    first columns, over the SRS points cycled."""
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.fields.limbs import ints_to_array
+    from zkt_plonk_tpu_torch.ops import msm
+
+    ck = srs_1024(dev)
+    ctx = ck.ctx
+    spec = ctx.fq_spec
+    L = spec.n_limbs
+    r = ctx.curve.fr.modulus
+    fr_bits = r.bit_length()
+    top = int(ctx.fr_spec.modulus_limbs[-1])
+    gen = np.random.default_rng(log_n)
+    c = 8
+    K = (1 << (c - 1)) + 1
+    n = (1 << log_n) + 4
+    W = msm.num_windows(fr_bits + 1, c)
+    pts = ck.powers[torch.arange(n, device=dev) % 1024].contiguous()
+    keys = ("msm_digits", _cuda.instance("ec_bucket_accumulate", L),
+            _cuda.instance("ec_bucket_merge", L))
+    for B in (1, 2, 3, 6):
+        G = msm.group_count(n, c, B, W, L)
+        C = msm.merge_chunks(G, B * W * (K - 1), L)
+        limbs = gen.integers(0, 1 << 16, size=(B, n, 16), dtype=np.int64)
+        limbs[..., 15] = gen.integers(0, top, size=(B, n))
+        limbs[0, :3] = ints_to_array([0, 1, r - 1], 16)
+        S = torch.from_numpy(limbs.astype(np.int32)).to(dev)
+        before = dict(_cuda.launches)
+        digits = msm.digit_rows(S, c, fr_bits, G)
+        buckets = msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c)
+        merged = msm.bucket_merge(spec, ck.b3, buckets)
+        launched = {k: _cuda.launches[k] - before[k] for k in keys}
+        if launched != dict(zip(keys, (1, 1, 2 if C > 1 else 1))):
+            raise AssertionError(f"the MSM at n=2^{log_n}+4, B={B} launched {launched}")
+        errs = {
+            "msm_digits": max_abs_err(digits, msm.digit_rows_plain(S, c, fr_bits, G)),
+            keys[1]: max_abs_err(buckets, msm.bucket_accumulate_plain(spec, ck.b3, pts, digits, G, c)),
+            keys[2]: max_abs_err(merged, msm.bucket_merge_plain(spec, ck.b3, buckets, C)),
+        }
+        if any(errs.values()):
+            raise AssertionError(f"the MSM at n=2^{log_n}+4, B={B} disagrees: {errs}")
+        ms = {
+            "k5_ms": time_cuda(lambda: msm.digit_rows(S, c, fr_bits, G), reps=5, warmup=1),
+            "k4a_ms": time_cuda(lambda: msm.bucket_accumulate(spec, ck.b3, pts, digits, G, c),
+                                reps=3, warmup=1),
+            "k6_ms": time_cuda(lambda: msm.bucket_merge(spec, ck.b3, buckets), reps=5, warmup=1),
+        }
+        b_ms, _ = accumulate_bound(digits, n, G, K, L)
+        say("parity", kernels="K5,K4a,K6", shape=f"n=2^{log_n}+4,B={B},c={c},G={G}", chunks=C,
+            **ms, k4a_bound_share=round(b_ms / ms["k4a_ms"], 4),
+            max_abs_err=max(errs.values()))
+        del S, digits, buckets, merged
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
@@ -907,11 +1039,58 @@ def golden(dev):
     say("golden", bytes=len(blob), sha256=digest, seconds=round(time.perf_counter() - t0, 3))
 
 
-def withdraw(dev, height=48, notes=3, table_size=1024, curve="bn254"):
-    """The withdraw circuit at n = 2^18 on one curve: BN254 + KZG with the
-    Ethereum transcript (phase ``withdraw``), or BLS12-381 + KZG with Merlin
-    and 48-byte coordinates (phase ``bls12_withdraw``: K3 and K2 in their
-    strict mode, K4 and K4a at L = 24)."""
+@contextlib.contextmanager
+def transform_launches(key):
+    """Every transform of a main path run inside: its launches by kernel,
+    counted by ``ntt_mr.transform``'s shape (per_transform), and those that
+    launched anything but D passes of K3 instance ``key`` (bad)."""
+    from collections import Counter
+
+    from zkt_plonk_tpu_torch import _cuda
+    from zkt_plonk_tpu_torch.ops import ntt_mr
+
+    per_transform, bad = Counter(), []
+    inner = ntt_mr.transform
+
+    def counted(spec, plan, x):
+        before = dict(_cuda.launches)
+        out = inner(spec, plan, x)
+        delta = launch_delta(before)
+        per_transform[f"D={len(plan.Fs)}:" + ",".join(f"{k}={v}" for k, v in delta.items())] += 1
+        if delta != {key: len(plan.Fs)}:
+            bad.append(delta)
+        return out
+
+    ntt_mr.transform = counted
+    try:
+        yield per_transform, bad
+    finally:
+        ntt_mr.transform = inner
+
+
+def merlin(coord_bytes):
+    """The factory of the Merlin transcript with ``coord_bytes``-byte
+    coordinates, as ``ZKTPlonk`` takes it."""
+    from zkt_plonk_tpu_torch.transcript.merlin import MerlinTranscript
+
+    return lambda label: MerlinTranscript(label, coord_bytes=coord_bytes)
+
+
+def withdraw(dev, height=48, notes=3, table_size=1024, curve="bn254", phase="withdraw",
+             transcript=None):
+    """The withdraw circuit on one curve over an SRS of 4 x its bound, the
+    degree ``compile`` trims to: BN254 + KZG with the Ethereum transcript
+    (phase ``withdraw``, the default), BLS12-381 + KZG with Merlin and
+    48-byte coordinates (phase ``bls12_withdraw``: K3 and K2 in their
+    strict mode, K4 and K4a at L = 24), or the reference CLI's largest,
+    HEIGHT=64, NOTES=4 on BN254 + Merlin (phase ``withdraw_h64_n4``:
+    n = 2^19 on 2^21 + 1 points).  Compile, cold and warm prove, verify,
+    the root and the last nullifier each tampered; every transform D
+    launches of K3; the warm proof's MSM launches and its counters
+    ``circuit_gates`` and ``domain_rows`` (the setup composer's gates and
+    bound).  The two n = 2^18 phases go on to the sharded and staged proofs
+    (``withdraw`` holds its sha256 to the golden digest there) and
+    ``withdraw`` to the batch phase."""
     from zkt_plonk_tpu_torch import _cuda
     from zkt_plonk_tpu_torch.circuits.withdraw_instance import build
     from zkt_plonk_tpu_torch.commitment import kzg
@@ -919,11 +1098,6 @@ def withdraw(dev, height=48, notes=3, table_size=1024, curve="bn254"):
     from zkt_plonk_tpu_torch.plonk import ZKTPlonk
     from zkt_plonk_tpu_torch.proof_system.proof import VerificationError
     from zkt_plonk_tpu_torch.transcript import EthereumTranscript
-    from zkt_plonk_tpu_torch.transcript.merlin import MerlinTranscript
-
-    phase = "withdraw" if curve == "bn254" else "bls12_withdraw"
-    transcript = EthereumTranscript if curve == "bn254" else (
-        lambda label: MerlinTranscript(label, coord_bytes=48))
 
     def clock(t0):
         if dev.type == "cuda":
@@ -932,7 +1106,8 @@ def withdraw(dev, height=48, notes=3, table_size=1024, curve="bn254"):
 
     t0 = time.perf_counter()
     circuit, table, pub_inputs = build(height, notes, table_size, curve=curve)
-    inst = ZKTPlonk(curve=curve, transcript_factory=transcript, table=table, device=dev)
+    inst = ZKTPlonk(curve=curve, transcript_factory=transcript or EthereumTranscript,
+                    table=table, device=dev)
     ntt_key = "ntt_col_pass" if curve == "bn254" else "ntt_col_pass/strict"
     cs = ConstraintSystem(inst.p, setup=True, lookup_table=table)
     circuit.synthesize(cs)
@@ -943,69 +1118,64 @@ def withdraw(dev, height=48, notes=3, table_size=1024, curve="bn254"):
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    # every transform of the main path: its launches, by kernel
-    from collections import Counter
-
-    from zkt_plonk_tpu_torch.ops import ntt_mr
-
-    per_transform = Counter()
-    bad = []
-    inner = ntt_mr.transform
-
-    def counted(spec, plan, x):
-        before = dict(_cuda.launches)
-        out = inner(spec, plan, x)
-        delta = {k: v - before[k] for k, v in _cuda.launches.items() if v != before[k]}
-        per_transform[f"D={len(plan.Fs)}:" + ",".join(f"{k}={v}" for k, v in delta.items())] += 1
-        if delta != {ntt_key: len(plan.Fs)}:
-            bad.append(delta)
-        return out
-
-    ntt_mr.transform = counted
-    _cuda.reset_launches()
-    t0 = time.perf_counter()
-    ck, cvk = kzg.setup(inst.ctx, max_degree=4 * bound, tau=987654321, device=dev)
-    srs_s = clock(t0)
-    t0 = time.perf_counter()
-    compiled = inst.compile(circuit, ck, cvk)
-    compile_s = clock(t0)
-    t0 = time.perf_counter()
-    rng42 = random.Random(42)
-    inst.prove(compiled, circuit, rng=rng42)
-    cold_s = clock(t0)
-    before = dict(_cuda.launches)
-    t0 = time.perf_counter()
-    proof = inst.prove(compiled, circuit, rng=random.Random(WARM_SEED))
-    warm_s = clock(t0)
-    single_launches = launch_delta(before)
-    t0 = time.perf_counter()
-    inst.verify(compiled, proof, pub_inputs)
-    verify_s = clock(t0)
-    # the same proof through ShardedProver on a world-size-1 NCCL mesh: the
-    # same bytes, each transform still D launches of K3
-    sharded_proofs(phase, dev, inst, compiled, circuit, pub_inputs, proof_bytes(inst, proof),
-                   warm_s, single_launches)
-    launches = dict(_cuda.launches)
-    ntt_mr.transform = inner
-    staged_proof(phase, dev, inst, compiled, circuit, rng42)
-    try:
-        inst.verify(compiled, proof, [(pub_inputs[0] + 1) % inst.p] + pub_inputs[1:])
-    except (VerificationError, AssertionError):
-        tamper = "raised"
-    else:
-        raise AssertionError("verification passed with a tampered public input")
+    with transform_launches(ntt_key) as (per_transform, bad):
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        ck, cvk = kzg.setup(inst.ctx, max_degree=4 * bound, tau=987654321, device=dev)
+        srs_s = clock(t0)
+        t0 = time.perf_counter()
+        compiled = inst.compile(circuit, ck, cvk)
+        compile_s = clock(t0)
+        t0 = time.perf_counter()
+        rng42 = random.Random(42)
+        inst.prove(compiled, circuit, rng=rng42)
+        cold_s = clock(t0)
+        before, counts0 = dict(_cuda.launches), profiling.snapshot()
+        t0 = time.perf_counter()
+        proof = inst.prove(compiled, circuit, rng=random.Random(WARM_SEED))
+        warm_s = clock(t0)
+        single_launches = launch_delta(before)
+        counts = {k: v - counts0[k] for k, v in profiling.snapshot().items()}
+        t0 = time.perf_counter()
+        inst.verify(compiled, proof, pub_inputs)
+        verify_s = clock(t0)
+        if phase != "withdraw_h64_n4":
+            # the same proof through ShardedProver on a world-size-1 NCCL
+            # mesh: the same bytes, each transform still D launches of K3
+            sharded_proofs(phase, dev, inst, compiled, circuit, pub_inputs,
+                           proof_bytes(inst, proof), warm_s, single_launches)
+        launches = dict(_cuda.launches)
+    if phase != "withdraw_h64_n4":
+        staged_proof(phase, dev, inst, compiled, circuit, rng42)
+    for k in (0, notes):  # the root, then the last nullifier
+        tampered = list(pub_inputs)
+        tampered[k] = (tampered[k] + 1) % inst.p
+        try:
+            inst.verify(compiled, proof, tampered)
+        except (VerificationError, AssertionError):
+            pass
+        else:
+            raise AssertionError(f"{phase}: verification passed with public input {k} tampered")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
     say(phase, srs_setup_s=srs_s, srs_points=4 * bound + 1, compile_s=compile_s,
-        prove_cold_s=cold_s, prove_warm_s=warm_s, verify_s=verify_s, tamper=tamper,
-        peak_device_gb=round(peak_gb, 2), nvidia_smi=f"'{nvidia_smi_line()}'")
-    say("launches", **launches)
-    say("ntt", transforms=sum(per_transform.values()), launches_per_transform=dict(per_transform))
+        prove_cold_s=cold_s, prove_warm_s=warm_s, verify_s=verify_s, tamper="raised",
+        peak_device_gb=round(peak_gb, 2), circuit_gates=counts["circuit_gates"],
+        domain_rows=counts["domain_rows"],
+        proof_sha256=hashlib.sha256(proof_bytes(inst, proof)).hexdigest(),
+        nvidia_smi=f"'{nvidia_smi_line()}'")
+    say("launches", path=phase, **launches)
+    say("ntt", path=phase, transforms=sum(per_transform.values()),
+        launches_per_transform=dict(per_transform))
     if bad:
-        raise AssertionError(f"transforms that launched more than their D passes of K3: {bad}")
+        raise AssertionError(f"{phase}: transforms that launched more than their D passes of K3: {bad}")
+    if (counts["circuit_gates"], counts["domain_rows"]) != (cs.n, bound):
+        raise AssertionError(f"{phase}: a proof counted {counts['circuit_gates']} gates and "
+                             f"{counts['domain_rows']} rows: want {cs.n} and {bound}")
+    msm_launches(phase, "single_device", single_launches, inst.ctx.fq_spec.n_limbs)
     if curve != "bn254" and launches["fp_pow_chain/L24"] == 0:
         raise AssertionError(f"{phase}: the key's Z = 1 copy launched no fp_pow_chain/L24")
     paths = {phase: launches}
-    if curve == "bn254":
+    if phase == "withdraw":
         paths["withdraw_batch"] = batch_phase(dev, inst, compiled, circuit, pub_inputs)
     return paths, (cold_s, warm_s)
 
@@ -1164,19 +1334,24 @@ def sharded_proofs(phase, dev, inst, compiled, circuit, pub_inputs, want, single
         nvidia_smi=f"'{nvidia_smi_line()}'")
     say(phase, launches_per_warm_proof=json.dumps({"single_device": single_launches,
                                                    "sharded_d1": sharded_launches}))
-    # the commits run K4a at the key's width, each batch's digits from K5 and
-    # its merge on K6
-    key = _cuda.instance("ec_bucket_accumulate", inst.ctx.fq_spec.n_limbs)
-    for path, got in (("single_device", single_launches), ("sharded_d1", sharded_launches)):
-        if got.get(key, 0) == 0:
-            raise AssertionError(f"{phase} {path}: K4a launches {got}: want {key}")
-        if got.get("msm_digits", 0) != got[key]:
-            raise AssertionError(f"{phase} {path}: {got[key]} K4a launches, "
-                                 f"{got.get('msm_digits', 0)} of msm_digits")
-        merges = got.get(_cuda.instance("ec_bucket_merge", inst.ctx.fq_spec.n_limbs), 0)
-        if not got[key] <= merges <= 2 * got[key]:
-            raise AssertionError(f"{phase} {path}: {got[key]} K4a launches, {merges} of K6: "
-                                 f"want one or two a batch")
+    msm_launches(phase, "sharded_d1", sharded_launches, inst.ctx.fq_spec.n_limbs)
+
+
+def msm_launches(phase, path, got, n_limbs):
+    """A warm proof's commits run K4a at the key's width ``n_limbs``, each
+    batch's digits from K5 and its merge on K6 (one or two launches)."""
+    from zkt_plonk_tpu_torch import _cuda
+
+    key = _cuda.instance("ec_bucket_accumulate", n_limbs)
+    if got.get(key, 0) == 0:
+        raise AssertionError(f"{phase} {path}: K4a launches {got}: want {key}")
+    if got.get("msm_digits", 0) != got[key]:
+        raise AssertionError(f"{phase} {path}: {got[key]} K4a launches, "
+                             f"{got.get('msm_digits', 0)} of msm_digits")
+    merges = got.get(_cuda.instance("ec_bucket_merge", n_limbs), 0)
+    if not got[key] <= merges <= 2 * got[key]:
+        raise AssertionError(f"{phase} {path}: {got[key]} K4a launches, {merges} of K6: "
+                             f"want one or two a batch")
 
 
 def device_busy_share(fn):
@@ -1469,14 +1644,12 @@ def matrix(dev):
     from zkt_plonk_tpu_torch.plonk import ZKTPlonk
     from zkt_plonk_tpu_torch.proof_system.proof import VerificationError
     from zkt_plonk_tpu_torch.transcript import EthereumTranscript
-    from zkt_plonk_tpu_torch.transcript.merlin import MerlinTranscript
     from zkt_plonk_tpu_torch.utils import arkserde
 
     launches = {k: 0 for k in _cuda.INSTANCES}
     for scheme, curve, tau, seed in MATRIX:
         ctx = make_context(curve)
-        transcript = EthereumTranscript if curve == "bn254" else (
-            lambda label: MerlinTranscript(label, coord_bytes=48))
+        transcript = EthereumTranscript if curve == "bn254" else merlin(48)
         if scheme == "ipa":
             ck, _ = ipa.setup(ctx, max_degree=32, device=dev)
             ck_cpu = ipa.make_key(ctx, ck.gens, ck.u, device="cpu")
@@ -1769,7 +1942,7 @@ def occupancy_report() -> None:
 
 
 PHASES = ("parity", "golden", "withdraw", "poseidon", "cli", "bls12_withdraw", "matrix",
-          "sharded_d2")
+          "sharded_d2", "h64_n4")
 
 
 def main() -> int:
@@ -1838,7 +2011,8 @@ def main() -> int:
     if "cli" in phases:
         paths["cli"] = cli_phase(dev, eth_prove_s)
     if "bls12_withdraw" in phases:
-        paths.update(withdraw(dev, curve="bls12_381")[0])
+        paths.update(withdraw(dev, curve="bls12_381", phase="bls12_withdraw",
+                              transcript=merlin(48))[0])
         say("total", after="bls12_withdraw", wall_s=round(time.perf_counter() - T_START, 1))
     if "matrix" in phases:
         _cuda.reset_launches()
@@ -1847,6 +2021,13 @@ def main() -> int:
     if "sharded_d2" in phases:
         paths["sharded_d2"] = sharded_d2(dev)
         say("total", after="sharded_d2", wall_s=round(time.perf_counter() - T_START, 1))
+    if "h64_n4" in phases:
+        parity_ntt_at(dev, 19, 2)
+        parity_ntt_at(dev, 21, 1)
+        parity_msm_at(dev, 19)
+        paths.update(withdraw(dev, 64, 4, 1024, phase="withdraw_h64_n4",
+                              transcript=merlin(32))[0])
+        say("total", after="h64_n4", wall_s=round(time.perf_counter() - T_START, 1))
     launches = {k: 0 for k in _cuda.INSTANCES}
     for name, path_launches in paths.items():
         say("launches", path=name, **{k: v for k, v in path_launches.items() if v})

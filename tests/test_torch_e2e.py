@@ -182,6 +182,8 @@ def test_timing_sections_change_nothing(golden):
 
     counts = {k: v - c0[k] for k, v in profiling.snapshot().items()}
     assert counts["host_waits"] == sum(p.endswith("/wait") for p in paths) == 7
+    # 4 gates on the 64 rows the 63-entry table needs
+    assert (counts["circuit_gates"], counts["domain_rows"]) == (4, 64)
     assert counts["h2d_copies"] > paths.count("prove/stage") and counts["h2d_bytes"] > 0
     # B x W x n per batch: 6 + 2 + 3 + 1 + 1 polynomials of n + 4 = 68
     # coefficients, W = 64 windows of c = 4 bits

@@ -106,6 +106,54 @@ def test_counters_stay_exact_under_threads():
     assert profiling.drain() == []  # the recorder was off: waits counted, no span kept
 
 
+class Chain:
+    """A circuit of ``gates`` additions, a public output and one lookup."""
+
+    def __init__(self, gates):
+        self.gates = gates
+
+    def synthesize(self, cs):
+        from zkt_plonk_tpu_torch.cs import lt
+
+        a = cs.assign_variable(1)
+        x = a
+        for _ in range(self.gates):
+            x = cs.add_gate(lt(x), lt(a))
+        cs.set_variable_public(lt(x))
+        cs.lookup_constrain(lt(a))
+
+
+class Compiled:
+    """What ``ZKTPlonk.statement`` reads of a compiled circuit: the verifier
+    key that seeds the transcript (here it appends nothing), so the test
+    needs no SRS and no keys."""
+
+    class vk:
+        @staticmethod
+        def seed_transcript(transcript):
+            pass
+
+
+@pytest.mark.parametrize("gates,rows", [(5, 64), (200, 256)])  # the table's 63 rows bind at 5
+def test_each_statement_counts_the_circuit_gates_and_domain_rows(gates, rows):
+    """``ZKTPlonk.statement`` adds its proving composer's gates to
+    ``circuit_gates`` and its ``circuit_bound()`` to ``domain_rows``, once a
+    statement, whatever the circuit: two statements, twice."""
+    from zkt_plonk_tpu_torch.cs import LookupTable
+    from zkt_plonk_tpu_torch.plonk import ZKTPlonk
+
+    inst = ZKTPlonk(curve="bn254", table=LookupTable([1, 2, 5], size=63), device="cpu")
+    compiled = Compiled()
+    before = profiling.snapshot()
+    composer, _ = inst.statement(compiled, Chain(gates))
+    composer_again, _ = inst.statement(compiled, Chain(gates))
+    after = profiling.snapshot()
+    assert composer.n == composer_again.n == gates + 2
+    assert after["circuit_gates"] - before["circuit_gates"] == 2 * composer.n
+    assert after["domain_rows"] - before["domain_rows"] == 2 * rows
+    assert profiling.drain() == []  # the recorder was off: counted, no span kept
+
+
 def _span(name, start, end, index, parent=-1):
     return Span(name, start, end, index, parent, 1, 0)
 

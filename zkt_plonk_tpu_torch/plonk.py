@@ -23,7 +23,7 @@ from .proof_system.keys import ExtendedProverKey, ProverKey, VerifierKey
 from .proof_system.proof import Proof
 from .proof_system.prover import Prover
 from .transcript import EthereumTranscript
-from .utils.profiling import begin_request, section
+from .utils.profiling import begin_request, count, section
 
 TRANSCRIPT_LABEL = "ZKT Plonk"
 
@@ -77,12 +77,14 @@ class ZKTPlonk:
         ``compiled``'s verifier key (a ``parallel.BatchProver`` takes one
         of each per proof).  It begins a new request of the span recorder
         (``utils/profiling``) on this thread, which the prover's ``prove``
-        that follows on it continues."""
+        that follows on it continues, and adds the circuit's gates and
+        domain rows to the counters ``circuit_gates`` and ``domain_rows``."""
         begin_request()
         with section("statement"):
             cs = ConstraintSystem(self.p, setup=False, lookup_table=self.table)
             with section("synthesize"):
                 circuit.synthesize(cs)
+            count(circuit_gates=cs.n, domain_rows=cs.circuit_bound())
             transcript = self.transcript_factory(TRANSCRIPT_LABEL)
             with section("seed_transcript"):
                 compiled.vk.seed_transcript(transcript)

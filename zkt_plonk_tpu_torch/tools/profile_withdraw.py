@@ -12,7 +12,8 @@ another tree of the port: ``PYTHONPATH=<tree> python <this file>``.
 It builds the withdraw circuit (default: the reference's HEIGHT=48,
 NOTES=3, TABLE=1024, n = 2^18; on BN254 with the Ethereum transcript, or
 with ``--curve bls12_381`` on BLS12-381 with Merlin and 48-byte
-coordinates), sets up the SRS, compiles and proves once to warm up.  It
+coordinates), sets up the SRS of 4 x the circuit bound (the degree
+``compile`` trims every SRS to), compiles and proves once to warm up.  It
 then times one ``section`` of the span recorder (``utils/profiling``) off
 and on, and proves 2 x ``PROOFS`` (12) times under ``torch.profiler`` (CUDA
 activity), the recorder off and on in turns (off, on, on, off, ...), each
@@ -25,6 +26,8 @@ clock.  From the recorded proofs it reports, per proof:
   which the card ran nothing; the self shares of ``prove`` and
   ``statement``;
 * the counters (``profiling.counters``, ``_cuda.work``) and the launches,
+  the circuit's gates and domain rows a proof among them
+  (``circuit_gates``, ``domain_rows``),
   the share of the staged bytes copied from pinned memory
   (``h2d_pinned_bytes / h2d_bytes``), and the host-to-device copies' device
   ms and effective GB/s (``h2d_bytes`` over their time in the trace);
@@ -265,7 +268,8 @@ def main() -> int:
     cs = ConstraintSystem(inst.p, setup=True, lookup_table=table)
     circuit.synthesize(cs)
     bound = cs.circuit_bound()
-    ck, cvk = kzg.setup(inst.ctx, max_degree=4 * bound, tau=987654321, device=dev)
+    srs_degree = 4 * bound
+    ck, cvk = kzg.setup(inst.ctx, max_degree=srs_degree, tau=987654321, device=dev)
     t0 = time.perf_counter()
     compiled = inst.compile(circuit, ck, cvk)
     torch.cuda.synchronize()
@@ -357,7 +361,8 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi,
         "config": {"curve": args.curve, "height": args.height, "notes": args.notes,
-                   "table": args.table, "n": bound, "sharded": args.sharded,
+                   "table": args.table, "n": bound, "srs_degree": srs_degree,
+                   "sharded": args.sharded,
                    "proofs_off": len(wall["off"]), "proofs_on": len(wall["on"])},
         "compile_s": compile_s,
         "proof_sha256": proof_sha256,
@@ -384,8 +389,10 @@ def main() -> int:
         json.dump(record, f, indent=1)
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     print(f"card: {smi}")
-    print(f"{args.curve} n={bound} sharded={args.sharded} compile_s={compile_s:.3f} "
-          f"proof_sha256={proof_sha256}")
+    print(f"{args.curve} n={bound} srs_degree={srs_degree} sharded={args.sharded} "
+          f"compile_s={compile_s:.3f} proof_sha256={proof_sha256}")
+    print(f"size a proof: circuit_gates {counters['circuit_gates']:.0f}, "
+          f"domain_rows {counters['domain_rows']:.0f}")
     print(f"section: off {cost_us['off']:.3f} us, on {cost_us['on']:.3f} us; "
           f"{len(spans) / n_traced:.1f} spans a proof")
     print(f"proof wall: recorder off {mean(wall['off']):.4f} s {wall['off']}, "

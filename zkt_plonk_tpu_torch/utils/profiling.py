@@ -23,8 +23,10 @@ copy on the card, of 2 bytes a limb), and ``h2d_pinned_bytes``, those of
 the bytes copied from pinned memory (all of them on a card, none on the
 CPU);
 ``host_waits``, the blocking reads of the device on the prove path (one
-per ``wait`` span, through ``waiting``).  Kernel work is counted beside
-the launches, in ``_cuda.work``.
+per ``wait`` span, through ``waiting``); ``circuit_gates`` and
+``domain_rows``, the proving composer's gates and its ``circuit_bound()``,
+added once per ``ZKTPlonk.statement``, so gates and rows a proof.  Kernel
+work is counted beside the launches, in ``_cuda.work``.
 
 The rest of the module reads spans and a device trace on one clock:
 interval unions, each span's path and self time, the device intervals of
@@ -57,7 +59,7 @@ class Span(NamedTuple):
 
 
 counters: Dict[str, int] = {"h2d_copies": 0, "h2d_bytes": 0, "h2d_pinned_bytes": 0,
-                            "host_waits": 0}
+                            "host_waits": 0, "circuit_gates": 0, "domain_rows": 0}
 
 _on = False
 _lock = threading.Lock()
